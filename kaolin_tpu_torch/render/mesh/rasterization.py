@@ -1,0 +1,168 @@
+"""Differentiable z-buffer triangle rasterization (DIB-R).
+
+Port of ``kaolin_tpu/render/mesh/rasterization.py``.  Rasterization is
+split into a non-differentiable selection pass (the z-buffer winner per
+pixel, from the fused engine in :mod:`._fused`) and a differentiable
+epilogue: gather the selected face per pixel, recompute its normalized
+barycentric weights with the ``copysign(eps)`` rule and interpolate the
+features.  Autograd of the epilogue is the rasterizer's backward.
+
+Pixel-center convention: ``x0 = mult/W * (2*wi + 1 - W)``,
+``y0 = mult/H * (H - 2*hi - 1)`` — image coords in [-1, 1] with y up and
+row 0 at the top.
+"""
+
+import torch
+
+from kaolin_tpu_torch.render.mesh._fused import fused_selection
+
+__all__ = ['rasterize', 'rasterize_selection']
+
+_BACKENDS = ('fused', 'auto')
+
+
+def _resolve_backend(backend):
+    if backend not in _BACKENDS:
+        raise NotImplementedError(
+            f'rasterization backend {backend!r} is not ported: the port has '
+            f'{list(_BACKENDS)}; the brute-force k-buffer backend (JAX '
+            "'jnp') is a ROADMAP open item (slice 1, k-buffer backend)")
+    return 'fused'
+
+
+def pixel_coords(height, width, multiplier, dtype=torch.float32,
+                 device=None):
+    """Pixel-center coordinates: xs (W,), ys (H,)."""
+    xs = (multiplier / width) * (
+        2 * torch.arange(width, dtype=dtype, device=device) + 1 - width)
+    ys = (multiplier / height) * (
+        height - 2 * torch.arange(height, dtype=dtype, device=device) - 1)
+    return xs, ys
+
+
+def _bary_weights_gathered(fv, x0, y0, eps):
+    """Weights for one face per pixel.  fv: (..., 3, 2); x0/y0: (...)."""
+    a_ex = fv[..., 0, 0] - x0
+    a_ey = fv[..., 0, 1] - y0
+    b_ex = fv[..., 1, 0] - x0
+    b_ey = fv[..., 1, 1] - y0
+    c_ex = fv[..., 2, 0] - x0
+    c_ey = fv[..., 2, 1] - y0
+    w0 = b_ex * c_ey - b_ey * c_ex
+    w1 = c_ex * a_ey - c_ey * a_ex
+    w2 = a_ex * b_ey - a_ey * b_ex
+    norm = w0 + w1 + w2
+    # copysign(eps, norm): the sign bit decides, so -0.0 takes -eps
+    norm = norm + torch.where(torch.signbit(norm), -eps, eps)
+    return w0 / norm, w1 / norm, w2 / norm
+
+
+def _interpolate_selected_batched(face_idx, face_vertices_image_scaled,
+                                  face_features, xs, ys, eps):
+    """Batched differentiable epilogue: gather + weights + lerp.
+
+    face_idx: (B, H, W) int; fvi: (B, F, 3, 2) scaled; features
+    (B, F, 3, C).
+
+    Returns:
+        (image_features (B, H, W, C), weights (B, H, W, 3)).
+    """
+    B, F = face_vertices_image_scaled.shape[:2]
+    H, W = face_idx.shape[1:]
+    covered = face_idx >= 0                            # (B, H, W)
+    # Background pixels gather some face and get zero weights below.  They
+    # gather faces spread by pixel index, not all face 0: the gather's
+    # backward accumulates the rows of one face serially on the card, and
+    # one face with every background pixel made it ~80 ms of the 512^2 step.
+    spread = torch.arange(H * W, device=face_idx.device).reshape(H, W) % F
+    sel = torch.where(covered, face_idx, spread).long()
+    bidx = torch.arange(B, device=sel.device)[:, None, None]
+    fv = face_vertices_image_scaled[bidx, sel]         # (B, H, W, 3, 2)
+    ff = face_features[bidx, sel]                      # (B, H, W, 3, C)
+    w0, w1, w2 = _bary_weights_gathered(fv, xs[None, None, :],
+                                        ys[None, :, None], eps)
+    weights = torch.stack([w0, w1, w2], dim=-1)        # (B, H, W, 3)
+    weights = torch.where(covered[..., None], weights, 0.)
+    feats = (weights[..., 0:1] * ff[..., 0, :]
+             + weights[..., 1:2] * ff[..., 1, :]
+             + weights[..., 2:3] * ff[..., 2, :])
+    return feats, weights
+
+
+def rasterize_selection(height, width, face_vertices_z, face_vertices_image,
+                        valid_faces=None, multiplier=None, eps=None,
+                        backend='auto'):
+    """Run only the (non-differentiable) z-buffer selection pass.
+
+    Returns:
+        ``(B, H, W)`` int32 winning-face indices (-1 = background).
+    """
+    _resolve_backend(backend)
+    if multiplier is None:
+        multiplier = 1000
+    if eps is None:
+        eps = 1e-8
+    return fused_selection(
+        face_vertices_z, face_vertices_image, valid_faces, height, width,
+        float(multiplier), eps=eps, with_softmask=False).face_idx
+
+
+def rasterize(height, width, face_vertices_z, face_vertices_image,
+              face_features, valid_faces=None, multiplier=None, eps=None,
+              backend='auto', with_weights=False,
+              precomputed_face_idx=None):
+    """Differentiable rasterization of triangle meshes to feature images.
+
+    Args:
+        height, width: output image size.
+        face_vertices_z: ``(B, F, 3)`` camera-space z of face vertices
+            (camera looks down -z: larger z = closer).
+        face_vertices_image: ``(B, F, 3, 2)`` image-plane positions in
+            [-1, 1] (y up).
+        face_features: ``(B, F, 3, C)`` per-face-vertex features, or a list
+            of such (concatenated and re-split).
+        valid_faces: optional ``(B, F)`` bool mask.
+        multiplier: coordinate scale to avoid numeric issues (default 1000).
+        eps: barycentric normalization epsilon (default 1e-8).
+        backend: 'fused' or 'auto' (= 'fused').
+        with_weights: also return the per-pixel barycentric weights.
+        precomputed_face_idx: ``(B, H, W)`` selection to reuse.
+
+    Returns:
+        (image_features ``(B, H, W, C)`` [or tuple], face_idx
+        ``(B, H, W)`` int32 with -1 for background[, weights
+        ``(B, H, W, 3)``]).
+    """
+    if multiplier is None:
+        multiplier = 1000
+    if eps is None:
+        eps = 1e-8
+    is_list = isinstance(face_features, (list, tuple))
+    features = (torch.cat(list(face_features), dim=-1) if is_list
+                else face_features)
+
+    fvi_scaled = face_vertices_image * multiplier
+    xs, ys = pixel_coords(height, width, multiplier,
+                          dtype=face_vertices_z.dtype,
+                          device=face_vertices_z.device)
+
+    if precomputed_face_idx is not None:
+        face_idx = precomputed_face_idx.detach()
+    else:
+        face_idx = rasterize_selection(
+            height, width, face_vertices_z, face_vertices_image,
+            valid_faces, multiplier, eps, backend)
+
+    image_features, weights = _interpolate_selected_batched(
+        face_idx, fvi_scaled, features, xs, ys, eps)
+
+    if is_list:
+        out = []
+        cur = 0
+        for f in face_features:
+            out.append(image_features[..., cur:cur + f.shape[-1]])
+            cur += f.shape[-1]
+        image_features = tuple(out)
+    if with_weights:
+        return image_features, face_idx, weights
+    return image_features, face_idx

@@ -1,0 +1,79 @@
+"""Test scaffolding shared by the tests and ``chip_smoke.py`` (numpy only).
+
+The repository holds no mesh file, so the DIB-R step runs on a procedural
+textured UV sphere whose output both packages can take.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+
+__all__ = ['UVSphere', 'uv_sphere', 'random_triangles']
+
+
+def random_triangles(seed, F, B=2, spread=0.3):
+    """Random small triangles for the fused-engine tests, numpy-seeded.
+
+    Returns (face_vertices_z (B, F, 3) in [0.1, 2], face_vertices_image
+    (B, F, 3, 2) in [-0.9, 0.9]), float32; ``spread`` shrinks each triangle
+    towards its centroid.
+    """
+    rng = np.random.default_rng(seed)
+    fvi = rng.uniform(-0.9, 0.9, (B, F, 3, 2)).astype(np.float32)
+    cent = fvi.mean(axis=2, keepdims=True)
+    fvi = (cent + (fvi - cent) * spread).astype(np.float32)
+    fvz = rng.uniform(0.1, 2.0, (B, F, 3)).astype(np.float32)
+    return fvz, fvi
+
+
+class UVSphere(NamedTuple):
+    vertices: np.ndarray       # (V, 3) float32, unit radius
+    faces: np.ndarray          # (F, 3) int64, counter-clockwise from outside
+    uvs: np.ndarray            # (U, 2) float32 in [0, 1]
+    face_uvs_idx: np.ndarray   # (F, 3) int64 rows of ``uvs``
+
+
+def uv_sphere(n_lon, n_lat):
+    """Unit UV sphere with ``2 * n_lon * (n_lat - 1)`` triangles.
+
+    ``n_lon`` segments around the y axis, ``n_lat`` rings from pole to pole.
+    Vertices are shared (one per pole); the uv grid has a seam column, so
+    ``uvs`` has ``(n_lon + 1) * (n_lat + 1)`` rows with v = 1 at the north
+    pole (OpenGL convention).  ``uv_sphere(100, 51)`` has 10,000 faces.
+    """
+    if n_lon < 3 or n_lat < 2:
+        raise ValueError(f'need n_lon >= 3 and n_lat >= 2, got '
+                         f'{n_lon}, {n_lat}')
+    theta = np.pi * np.arange(1, n_lat) / n_lat            # ring latitudes
+    phi = 2 * np.pi * np.arange(n_lon) / n_lon
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    ring = np.stack([st * np.sin(phi),
+                     np.broadcast_to(ct, (n_lat - 1, n_lon)),
+                     st * np.cos(phi)], axis=-1).reshape(-1, 3)
+    vertices = np.concatenate([[[0., 1., 0.]], ring, [[0., -1., 0.]]])
+    north, south = 0, len(vertices) - 1
+
+    def vid(r, k):                                         # ring r, column k
+        return 1 + r * n_lon + k % n_lon
+
+    def uid(r, k):                                         # uv row r, column k
+        return r * (n_lon + 1) + k
+
+    faces, fuv = [], []
+    for k in range(n_lon):
+        faces.append([north, vid(0, k), vid(0, k + 1)])
+        fuv.append([uid(0, k), uid(1, k), uid(1, k + 1)])
+        for r in range(n_lat - 2):
+            a, b = vid(r, k), vid(r, k + 1)
+            c, d = vid(r + 1, k), vid(r + 1, k + 1)
+            ua, ub = uid(r + 1, k), uid(r + 1, k + 1)
+            uc, ud = uid(r + 2, k), uid(r + 2, k + 1)
+            faces += [[a, c, d], [a, d, b]]
+            fuv += [[ua, uc, ud], [ua, ud, ub]]
+        faces.append([vid(n_lat - 2, k), south, vid(n_lat - 2, k + 1)])
+        fuv.append([uid(n_lat - 1, k), uid(n_lat, k), uid(n_lat - 1, k + 1)])
+    u, v = np.meshgrid(np.arange(n_lon + 1) / n_lon,
+                       1. - np.arange(n_lat + 1) / n_lat)
+    uvs = np.stack([u, v], axis=-1).reshape(-1, 2)
+    return UVSphere(vertices.astype(np.float32), np.asarray(faces, np.int64),
+                    uvs.astype(np.float32), np.asarray(fuv, np.int64))
