@@ -31,6 +31,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 BUILD_LOG = {}          # name -> nvcc output (registers, shared memory)
 _LIBS = {}
+_LOCKS = {}             # name -> lock: different sources build in parallel
 _LOCK = threading.Lock()
 
 
@@ -75,8 +76,13 @@ def _build(name):
 
 
 def load(name):
-    """The ``ctypes.CDLL`` of ``csrc/<name>.cu``, built on first use."""
+    """The ``ctypes.CDLL`` of ``csrc/<name>.cu``, built on first use.
+
+    Thread-safe; calls for different sources build them in parallel.
+    """
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(_build(name)))
         return _LIBS[name]

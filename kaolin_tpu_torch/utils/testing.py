@@ -1,14 +1,14 @@
 """Test scaffolding shared by the tests and ``chip_smoke.py`` (numpy only).
 
-The repository holds no mesh file, so the DIB-R step runs on a procedural
-textured UV sphere whose output both packages can take.
+The repository holds no mesh file, so the DIB-R step and the SPC pipeline
+run on a procedural UV sphere whose output both packages can take.
 """
 
 from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ['UVSphere', 'uv_sphere', 'random_triangles']
+__all__ = ['UVSphere', 'uv_sphere', 'random_triangles', 'camera_grid']
 
 
 def random_triangles(seed, F, B=2, spread=0.3):
@@ -77,3 +77,17 @@ def uv_sphere(n_lon, n_lat):
     uvs = np.stack([u, v], axis=-1).reshape(-1, 2)
     return UVSphere(vertices.astype(np.float32), np.asarray(faces, np.int64),
                     uvs.astype(np.float32), np.asarray(fuv, np.int64))
+
+
+def camera_grid(side, z=-2.5, spread=0.1, extent=0.9):
+    """A ``side`` x ``side`` grid of camera rays (row-major, y slowest):
+    origins on [-extent, extent]^2 at depth ``z``, unit directions
+    ``(spread * x, spread * y, 1)``.  Returns float32 (origin, direction),
+    each (side^2, 3)."""
+    ys, xs = np.meshgrid(np.linspace(-extent, extent, side),
+                         np.linspace(-extent, extent, side), indexing='ij')
+    o = np.stack([xs.ravel(), ys.ravel(), np.full(side * side, z)], -1)
+    d = np.stack([xs.ravel() * spread, ys.ravel() * spread,
+                  np.ones(side * side)], -1)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)

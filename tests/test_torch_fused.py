@@ -204,7 +204,11 @@ def test_cpu_path_launches_no_kernel():
 def test_port_imports_no_jax():
     code = ('import sys, kaolin_tpu_torch, kaolin_tpu_torch.models; '
             'from kaolin_tpu_torch.render.mesh import _fused; '
-            'from kaolin_tpu_torch import _cuda; '
+            'from kaolin_tpu_torch.render.spc import _trace, raster; '
+            'from kaolin_tpu_torch.ops.spc import device; '
+            'from kaolin_tpu_torch.ops import conversions; '
+            'from kaolin_tpu_torch import _cuda, rep; '
+            'from kaolin_tpu_torch.utils import testing; '
             'bad = [m for m in sys.modules '
             "if m == 'jax' or m.startswith(('jax.', 'kaolin_tpu.'))]; "
             'print(bad); sys.exit(1 if bad else 0)')
