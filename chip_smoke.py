@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of kaolin_tpu_torch, the PyTorch + CUDA port, on one GPU.
 
-Drives the port's two ported paths and checks them phase by phase.
+Drives the port's paths and checks them phase by phase.
 
 The DIB-R inverse-rendering trainer of
 ``examples/dibr_inverse_rendering.py`` (fused selection -> textured,
@@ -35,6 +35,28 @@ sphere scaled to radius 0.45 (~1.0M voxels at level 10):
 9. the whole trace against the port's BFS on the 1,048,576 rays;
 10. times of the trace, K3, the cell table, the mesh builder and the BFS.
 
+The probes of K3 and of the card (``kaolin_tpu_torch.probes``, the port of
+the TPU probe scripts), each driven through its entry point ``run`` with
+its kernels' launch counts set to 0 just before and read just after:
+
+11. P1, ``probes.mosaic3``: kernels kA..kH against their plain versions on
+    the script's inputs and a random x, bit for bit, and kB/kC/kD at K3's
+    staging shape (4,452 blocks x 61 rows of 4 x 192 from a table of the
+    level-10 cell table's row count); their times;
+12. P2, ``probes.stages``: the dummy kernel against 2 x, ns per CTA at
+    65,536 and 262,144 CTAs beside ``torch.mul``; the trace of the SPC cell
+    by stage (culling candidates, block order, gathers, the whole trace,
+    K3, output fills, pidx offset);
+13. P3, ``probes.kbisect``: K3 cut at stages 1-6 against the plain version
+    on the script's inputs, on a scene with rays past kbuf, and on phase
+    8's dense level-6 octree; at the SPC cell every stage against plain
+    and stage 6 equal to K3 bit for bit; each stage's time and its delta.
+
+Every kernel of the ``kernels`` line carries its time, its plain
+version's, its bound (the larger of bytes over 3.35 TB/s and float32
+operations over 67 TFLOP/s, counted on this run's inputs) and, where one
+PyTorch call computes the same function, that call's time.
+
 Every phase synchronises and raises on failure; there is no CPU path.
 Usage: ``python3 chip_smoke.py`` from the root of the repository.  The last
 line of its output is ``{"ok": true, "device": {...}}``; the line before
@@ -51,6 +73,8 @@ import torch
 
 from kaolin_tpu_torch import _cuda
 from kaolin_tpu_torch.models import inverse_render as M
+from kaolin_tpu_torch.probes import _kernels as PK
+from kaolin_tpu_torch.probes import kbisect, mosaic3, stages
 from kaolin_tpu_torch.ops.conversions.trianglemesh import (
     _tri_aabb_sat, unbatched_mesh_to_spc, unbatched_mesh_to_spc_device)
 from kaolin_tpu_torch.ops.spc import (generate_points, scan_octrees,
@@ -61,6 +85,8 @@ from kaolin_tpu_torch.render.spc import (
     unbatched_raytrace)
 from kaolin_tpu_torch.render.spc.raster import (
     _block_order, build_cell_table, trace_inputs, unbatched_raytrace_coherent)
+from kaolin_tpu_torch.utils import measure
+from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
 from kaolin_tpu_torch.utils.testing import camera_grid, uv_sphere
 
 HEIGHT = WIDTH = 512
@@ -92,14 +118,23 @@ SPC_PARITY_LEVEL = 8        # device vs host builder (host: numpy float64)
 SPC_CAPS = (2 ** 22, 2 ** 23)
 RAY_SIDE = 1024             # 1,048,576 camera rays in 4 x 4 pixel blocks
 CELLS = dict(cell_shift=3, cell_width=192)
-TRACE = dict(knum=256, with_exit=False, rays_per_tile=32,   # bench.py:243
-             max_super_voxels=512 * 192, max_active_blocks=8192,
-             segments=((512, 192), (1536, 48), (4096, 16), (None, 4)))
 TAU = 0.25                  # optical thickness per voxel hit (opacity check)
 DENSE = dict(level=6, points=250_000, side=128, knum=128, seed=6)
 FOX = ('fox.obj (bench.py): 992k voxels at level 10, <= 179 hits per ray; '
        'its non-saturating caps allow <= 8192 active blocks and <= 192 '
        'candidate cells per block')
+# float32 operations per pair, counted from csrc/dibr_fused.cu (bounds);
+# only the pairs where the function needs them
+K1_COVER_FLOPS = 35   # (pixel, valid face) in the face's own box (a pixel
+#                       outside it is never covered): 5 affine forms, the
+#                       sign tests, z
+K1_MASK_FLOPS = 87    # (pixel, face) in the face's enlarged bbox (outside
+#                       it p = 0): 6 distance candidates, their min, exp,
+#                       the product
+K2_FLOPS = 125        # (face, pixel) in the bbox where g*prod != 0: the
+#                       candidates, exp, dL/dd, the argmin, 4-6 gradient terms
+# the TPU kernels the probes replace (def lines in the scripts)
+P1_LINES = dict(kA=61, kB=73, kC=97, kD=119, kE=144, kF=153, kG=162, kH=174)
 # acceptance limits
 BORDER_SLACK = 1e-5         # face_idx flips only where a triangle grazes
 BARY_ATOL = 1e-5
@@ -108,32 +143,14 @@ BFS_DEPTH_ATOL = 1e-6
 OPACITY_ATOL = 1e-5
 
 
+def _bound(nbytes, flops):
+    ms, by = bound_ms(nbytes, flops)
+    return dict(bound_ms=ms, bound_by=by)
+
+
 def _check(ok, what):
     if not ok:
         raise RuntimeError(f'chip_smoke: check failed: {what}')
-
-
-def _card():
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _time_ms(fn, iters, warmup=1):
-    """Mean device time of fn() over iters launches, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def toolchain(card):
@@ -277,7 +294,8 @@ def check_step_against_plain(scene, params, loss, sel):
            for k, v in scene.items()}
     cpu['views'] = M.CameraViews(*(v.cpu() for v in scene['views']))
     p_cpu = M.from_jax_params(*(p.detach().cpu().numpy() for p in (
-        params.vertices, params.texture_map, params.sh_coeffs)))
+        params.vertices, params.texture_map, params.sh_coeffs)),
+        device='cpu')
     t0 = time.perf_counter()
     loss_c, sel_c = _step(cpu, p_cpu)
     cpu_s = time.perf_counter() - t0
@@ -336,13 +354,13 @@ def times(scene, inputs, g_prod, card):
     B = scene['views'].camera_rot.shape[0]
     F = scene['faces'].shape[0]
     vt, tr, ctr, cbb = inputs
-    step_ms = _time_ms(lambda: _step(scene, scene['params']), 5)
+    step_ms = time_ms(lambda: _step(scene, scene['params']), 5)
     fwd = (vt, tr, cbb, H, H, MULT, EPS, SIGMAINV, True)
     bwd = (vt, ctr, cbb, g_prod, H, H, MULT, SIGMAINV)
-    k1_ms = _time_ms(lambda: FU._fused_forward_cuda(*fwd), 20)
-    k1_plain_ms = _time_ms(lambda: FU._fused_forward_torch(*fwd), 3)
-    k2_ms = _time_ms(lambda: FU._fused_backward_cuda(*bwd), 20)
-    k2_plain_ms = _time_ms(lambda: FU._fused_backward_torch(*bwd), 3)
+    k1_ms = time_ms(lambda: FU._fused_forward_cuda(*fwd), 20)
+    k1_plain_ms = time_ms(lambda: FU._fused_forward_torch(*fwd), 3)
+    k2_ms = time_ms(lambda: FU._fused_backward_cuda(*bwd), 20)
+    k2_plain_ms = time_ms(lambda: FU._fused_backward_torch(*bwd), 3)
     print(f'[{card}] fwd+bwd step (selection + render_loss + backward, '
           f'{B} views, {H}x{H}, {F} faces): {step_ms:.3f} ms = '
           f'{B * H * H / step_ms / 1e3:.3f} Mpix/s, '
@@ -514,12 +532,14 @@ def check_trace_kernel(spc):
     same_main = (torch.equal(cnt, main.count) and torch.equal(
         _bits(out_k[0].reshape(N, -1)), _bits(main.t_near)))
     err = _max_t_err(out_k, out_p)
+    tests = kbisect.trace_work(args, out_k[3], False)[2]
     print(f'K3 spc_trace_kernel vs plain on the sphere scene: '
           f'{nb.shape[0]} active blocks of {args["num_blocks"]}, candidate '
           f'cells per block max {int(nb.max())}, mean '
           f'{nb.float().mean().item():.2f}; '
-          f'{rt * args["cell_rows"].shape[2] * int(nb.sum())} (ray, voxel) '
-          f'slab tests; hits per ray max {int(cnt.max())}, mean '
+          f'{rt * args["cell_rows"].shape[2] * int(nb.sum())} (ray, slot) '
+          f'pairs, {tests} of them (ray, voxel) slab tests; hits per ray '
+          f'max {int(cnt.max())}, mean '
           f'{cnt[hit].float().mean().item():.2f} over the {int(hit.sum())} '
           f'rays that hit; count, pidx and t_near (bitwise) equal: {same}; '
           f'max|dt| {err:.3e}; same rows as the main path: {same_main}; '
@@ -580,7 +600,7 @@ def check_dense(dev):
     _check(bool(sat_k.saturated), 'saturated where count > kbuf')
     _check(bool(sat_256.saturated) == bool((sat_256.count > 256).any()),
            'saturated exactly when a count exceeds knum')
-    return err
+    return err, args
 
 
 def check_against_bfs(spc):
@@ -632,22 +652,22 @@ def spc_times(spc, args, card):
     trace_args = (spc['octree'], spc['ph'], spc['pyramid'], spc['exsum'],
                   spc['o'], spc['d'], SPC_LEVEL)
     N = spc['o'].shape[0]
-    trace_ms = _time_ms(lambda: unbatched_raytrace_coherent(
+    trace_ms = time_ms(lambda: unbatched_raytrace_coherent(
         *trace_args, engine='mosaic', cell_table=spc['table'], **TRACE), 5)
     launch = {k: v for k, v in args.items() if k != 'num_blocks'}
     out = _trace._outputs(args['num_blocks'], args['rays'].shape[1],
                           args['kbuf'], spc['o'].device)
-    k3_ms = _time_ms(lambda: _trace._launch(with_exit=False, out=out,
+    k3_ms = time_ms(lambda: _trace._launch(with_exit=False, out=out,
                                             **launch), 20)
-    k3_alloc_ms = _time_ms(
+    k3_alloc_ms = time_ms(
         lambda: _trace._trace_cuda(with_exit=False, **args), 20)
-    k3_plain_ms = _time_ms(
+    k3_plain_ms = time_ms(
         lambda: _trace._trace_torch(with_exit=False, **args), 2)
-    table_ms = _time_ms(lambda: build_cell_table(
+    table_ms = time_ms(lambda: build_cell_table(
         spc['ph'], spc['pyramid'], SPC_LEVEL, **CELLS), 5)
-    build_ms = _time_ms(lambda: unbatched_mesh_to_spc_device(
+    build_ms = time_ms(lambda: unbatched_mesh_to_spc_device(
         spc['fv'], SPC_LEVEL, cap=SPC_CAPS[0]), 3)
-    bfs_ms = _time_ms(lambda: unbatched_raytrace(*trace_args,
+    bfs_ms = time_ms(lambda: unbatched_raytrace(*trace_args,
                                                  with_exit=True), 2)
     print(f'[{card}] trace (culling + K3 + outputs, {N} rays, knum '
           f'{TRACE["knum"]}): {trace_ms:.3f} ms = {N / trace_ms / 1e3:.3f} '
@@ -664,6 +684,155 @@ def spc_times(spc, args, card):
     return dict(trace_ms=trace_ms, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms)
 
 
+def dibr_work(scene, inputs, g_prod):
+    """(K1 bytes, K1 flops, K2 bytes, K2 flops) on this run's inputs.
+
+    Over the (tile, chunk) visits that pass the bbox test: for K1 the
+    (pixel, valid face) pairs inside the face's own box (coverage) and the
+    (pixel, face) pairs inside its enlarged bbox (soft mask); for K2 those
+    of the enlarged bbox where g*prod != 0.  Each visited chunk's table and
+    each image read once, each output written once.
+    """
+    H = scene['height']
+    vt, tr, _, cbb = inputs
+    B, nC = vt.shape[:2]
+    dev = vt.device
+    nI, nJ, TW = FU._tile_dims(*FU._padded_dims(H, H))
+    T = nI * nJ
+    x0, y0, bounds = FU._tile_pixels(H, H, MULT, dev)
+    xcol, yrow = x0[:, :TW], y0[:, ::TW]                  # (T, TW), (T, PS)
+    gz = torch.zeros((B, nI * FU.PS, nJ * TW), device=dev)
+    gz[:, :H, :H] = (g_prod != 0).float()
+    gz = gz.reshape(B, nI, FU.PS, nJ, TW).permute(0, 1, 3, 2, 4).reshape(
+        B, T, FU.PS, TW)
+    c = torch.arange(nC, device=dev)
+    cover = bbox = k2 = chunks = 0
+    for b in range(B):
+        ov = (FU._chunk_hits_tile(cbb[b], bounds) & (c >= tr[b, :, :1])
+              & (c < tr[b, :, 1:]))                        # (T, nC)
+        t_i, c_i = torch.nonzero(ov, as_tuple=True)
+        chunks += int(torch.unique(c_i).numel())
+        for s in range(0, t_i.numel(), 4096):
+            t, ci = t_i[s:s + 4096], c_i[s:s + 4096]
+            f = vt[b, ci]                                  # (V, FC, NCOL)
+            bb = f[..., FU._BB:FU._BB + 4]
+            fx = f[..., FU._VX:FU._VX + 6:2]               # (V, FC, 3)
+            fy = f[..., FU._VX + 1:FU._VX + 6:2]
+            xs, ys = xcol[t][:, None], yrow[t][:, None]
+            cols = ((xs >= bb[..., 0:1]) & (xs < bb[..., 2:3])).double()
+            rows = ((ys >= bb[..., 1:2]) & (ys < bb[..., 3:4])).double()
+            bbox += int((cols.sum(-1) * rows.sum(-1)).sum())
+            own_c = ((xs >= fx.amin(-1, keepdim=True))
+                     & (xs <= fx.amax(-1, keepdim=True))
+                     & (f[..., FU._VALID:FU._VALID + 1] > 0.))
+            own_r = ((ys >= fy.amin(-1, keepdim=True))
+                     & (ys <= fy.amax(-1, keepdim=True)))
+            cover += int((own_c.sum(-1) * own_r.sum(-1)).sum())
+            k2 += int(torch.einsum('vfc,vrc,vfr->', cols,
+                                   gz[b, t].double(), rows))
+    table = chunks * FU.FC * FU._NCOL * 4
+    k1_bytes = table + B * T * 8 + B * nC * 16 + B * H * H * 8
+    k1_flops = K1_COVER_FLOPS * cover + K1_MASK_FLOPS * bbox
+    k2_bytes = (table + B * nC * 24 + B * H * H * 4
+                + B * nC * FU.FC * 6 * 4)
+    return k1_bytes, k1_flops, k2_bytes, K2_FLOPS * k2
+
+
+def _probe_path(run, *args, **kwargs):
+    """Drive one probe entry point with every probe kernel's launch count
+    set to 0 just before; returns (its result, the counts just after)."""
+    for k in PK.LAUNCHES:
+        PK.LAUNCHES[k] = 0
+    for st in _trace.STAGES:
+        _trace.LAUNCHES[f'stage{st}'] = 0
+    torch.cuda.synchronize()
+    res = run(*args, **kwargs)
+    torch.cuda.synchronize()
+    counts = dict(PK.LAUNCHES)
+    counts.update({f'stage{st}': _trace.LAUNCHES[f'stage{st}']
+                   for st in _trace.STAGES})
+    return res, counts
+
+
+def _probe_counts():
+    return sum(PK.LAUNCHES.values()) + sum(
+        _trace.LAUNCHES[f'stage{st}'] for st in _trace.STAGES)
+
+
+def probe_p1(spc, card):
+    """Phase 11: P1 through ``probes.mosaic3.run``."""
+    rows = spc['table'].rows.shape[0]
+    t0 = time.perf_counter()
+    res, counts = _probe_path(mosaic3.run, spc['o'].device, table_rows=rows)
+    print(f'P1 kA..kH vs plain (script inputs, random x, and kB/kC/kD at '
+          f'K3\'s staging shape {mosaic3.STAGING} with {rows} table rows): '
+          f'bitwise equal, max|d| {max(res["max_abs_err"].values()):.1e}; '
+          f'launches {counts}; {time.perf_counter() - t0:.1f} s')
+    for where in ('script', 'staging'):
+        for name, t in res[where].items():
+            lib = ('-' if t['library_ms'] is None
+                   else f'{t["library_ms"]:.4f}')
+            print(f'[{card}] P1 {name} ({where}): {t["ms"]:.4f} ms, plain '
+                  f'{t["plain_ms"]:.4f}, library {lib}, bound '
+                  f'{t["bound_ms"]:.4f} ({t["bound_by"]})')
+    sb, sc = res['staging']['kB'], res['staging']['kC']
+    print(f'[{card}] P1 at K3\'s staging shape: double-buffered kB '
+          f'{sb["ms"]:.4f} ms vs single-slot kC {sc["ms"]:.4f} ms '
+          f'(kC / kB = {sc["ms"] / sb["ms"]:.3f})')
+    _check(all(counts[k] >= 1 for k in mosaic3.KERNELS),
+           'every P1 kernel launched on its path')
+    return res, counts
+
+
+def probe_p2(spc, card):
+    """Phase 12: P2 and the trace by stage through ``probes.stages.run``."""
+    cell = {k: spc[k] for k in ('octree', 'ph', 'pyramid', 'exsum', 'table',
+                                'o', 'd')}
+    t0 = time.perf_counter()
+    res, counts = _probe_path(stages.run, spc['o'].device, cell=cell)
+    print(f'P2 dummy kernel vs 2 x: bitwise equal; launches {counts["dummy"]}'
+          f'; {time.perf_counter() - t0:.1f} s')
+    for n, t in res['dummy'].items():
+        print(f'[{card}] P2 dummy grid, {n} CTAs of 8 x 128 f32: '
+              f'{t["ms"]:.4f} ms = {t["ns_per_cta"]:.2f} ns per CTA; '
+              f'torch.mul {t["library_ms"]:.4f} ms; bound '
+              f'{t["bound_ms"]:.4f} ms ({t["bound_by"]})')
+    tr = res['trace']
+    print(f'[{card}] trace by stage ({res["counts"]}): S1 candidates '
+          f'{tr["s1"]:.3f} ms, S1b + order {tr["s1b"]:.3f} ms, S2 + gathers '
+          f'{tr["s2"]:.3f} ms, S3 whole trace {tr["s3"]:.3f} ms; on their '
+          f'own: K3 {tr["k3"]:.3f} ms, output allocation + fills '
+          f'{tr["fills"]:.3f} ms, pidx offset {tr["pidx_offset"]:.3f} ms')
+    _check(counts['dummy'] >= 1, 'the P2 kernel launched on its path')
+    _check(not res['counts']['saturated'], 'the staged trace does not '
+           'saturate')
+    return res, counts
+
+
+def probe_p3(args, dense_args, card):
+    """Phase 13: P3, K3 by stage, through ``probes.kbisect.run``."""
+    t0 = time.perf_counter()
+    res, counts = _probe_path(kbisect.run, args['rays'].device,
+                              spc_args=args,
+                              scenes={'dense level-6': dense_args})
+    print(f'P3 stages 1-6 vs plain, with and without exit depths, bitwise '
+          f'equal on {res["scenes"]}; at the SPC cell ({res["spc"]}) every '
+          f'stage = plain and stage 6 = K3 bit for bit; launches {counts}; '
+          f'{time.perf_counter() - t0:.1f} s')
+    for st, t in res['stages'].items():
+        print(f'[{card}] P3 stage {st}: {t["ms"]:.4f} ms (+{t["delta_ms"]:.4f}'
+              f'), plain {t["plain_ms"]:.2f} ms')
+    print(f'[{card}] P3 K3 in the same loop {res["k3_ms"]:.4f} ms; bound '
+          f'{res["bound_ms"]:.4f} ms ({res["bound_by"]}: {res["flops"]:.4g} '
+          f'flops, {res["bytes"]:.4g} bytes)')
+    _check(res['scenes']['hits']['rays_over_kbuf'] > 0
+           and res['scenes']['dense level-6']['rays_over_64'] > 0,
+           'P3 scenes with counts past 64 and past kbuf')
+    _check(all(counts[f'stage{st}'] >= 1 for st in _trace.STAGES),
+           'every P3 stage launched on its path')
+    return res, counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is '
@@ -671,7 +840,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
-    card = _card()
+    card = measure.card()
 
     toolchain(card)
     scene = make_scene(dev)
@@ -686,26 +855,69 @@ def main():
     spc_build(fv, dev)
     spc = spc_main_path(fv, dev)
     args, k3_err = check_trace_kernel(spc)
-    k3_err = max(k3_err, check_dense(dev))
+    dense_err, dense_args = check_dense(dev)
+    k3_err = max(k3_err, dense_err)
     check_against_bfs(spc)
     ts = spc_times(spc, args, card)
 
+    _check(_probe_counts() == 0, 'no probe kernel ran on the DIB-R and '
+           'SPC paths')
+    p1, c1 = probe_p1(spc, card)
+    p2, c2 = probe_p2(spc, card)
+    p3, c3 = probe_p3(args, dense_args, card)
+
+    k1_b, k1_f, k2_b, k2_f = dibr_work(scene, inputs, g_prod)
+    k3_b, k3_f, _ = kbisect.trace_work(args, spc['hits'].count, False)
+    print(f'bounds from this run\'s inputs: K1 {k1_b} bytes, {k1_f} flops; '
+          f'K2 {k2_b} bytes, {k2_f} flops ({k2_f // K2_FLOPS} (face, pixel) '
+          f'pairs); K3 {k3_b} bytes, {k3_f} flops')
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
+    trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cu'
     kernels = [
         dict(name='fused_forward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:232',
              launches=launches['fwd'], max_abs_err=k1_err,
-             ms=t['k1_ms'], plain_ms=t['k1_plain_ms']),
+             ms=t['k1_ms'], plain_ms=t['k1_plain_ms'],
+             **_bound(k1_b, k1_f), library_ms=None),
         dict(name='fused_backward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:386',
              launches=launches['bwd'], max_abs_err=k2_err,
-             ms=t['k2_ms'], plain_ms=t['k2_plain_ms']),
-        dict(name='spc_trace_kernel', route='cuda',
-             source='kaolin_tpu_torch/csrc/spc_trace.cu',
+             ms=t['k2_ms'], plain_ms=t['k2_plain_ms'],
+             **_bound(k2_b, k2_f), library_ms=None),
+        dict(name='spc_trace_kernel', route='cuda', source=trace_src,
              replaces='kaolin_tpu/render/spc/raster.py:459',
              launches=spc['launches'], max_abs_err=k3_err,
-             ms=ts['k3_ms'], plain_ms=ts['k3_plain_ms']),
+             ms=ts['k3_ms'], plain_ms=ts['k3_plain_ms'],
+             **_bound(k3_b, k3_f), library_ms=None),
     ]
+    # the probes: `launches` counts their own entry point's run; none ran
+    # on the DIB-R or SPC main paths (main_path_launches)
+    for name in mosaic3.KERNELS:
+        k = p1['script'][name]
+        kernels.append(dict(
+            name=name, route='cuda',
+            source='kaolin_tpu_torch/csrc/probes.cu',
+            replaces=f'scripts/probe_r5_mosaic3.py:{P1_LINES[name]}',
+            launches=c1[name], main_path_launches=0,
+            max_abs_err=p1['max_abs_err'][name], ms=k['ms'],
+            plain_ms=k['plain_ms'], bound_ms=k['bound_ms'],
+            bound_by=k['bound_by'], library_ms=k['library_ms']))
+    k = p2['dummy'][max(p2['dummy'])]
+    kernels.append(dict(
+        name='dummy_kernel', route='cuda',
+        source='kaolin_tpu_torch/csrc/probes.cu',
+        replaces='scripts/probe_r5_stages.py:166', launches=c2['dummy'],
+        main_path_launches=0, max_abs_err=k['max_abs_err'], ms=k['ms'],
+        plain_ms=k['plain_ms'], bound_ms=k['bound_ms'],
+        bound_by=k['bound_by'], library_ms=k['library_ms']))
+    for st, k in p3['stages'].items():
+        kernels.append(dict(
+            name=f'spc_trace_kernel<STAGE={st}>', route='cuda',
+            source=trace_src, replaces='scripts/probe_r5_kbisect.py:32',
+            launches=c3[f'stage{st}'], main_path_launches=0,
+            max_abs_err=p3['max_abs_err'][st], ms=k['ms'],
+            plain_ms=k['plain_ms'], bound_ms=p3['bound_ms'],
+            bound_by=p3['bound_by'], library_ms=None))
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -33,6 +33,22 @@
 // -fmad=false keeps t0 + side * inv a rounded product and a rounded sum, as
 // PyTorch computes it, so t_near and t_far equal the plain version's bit
 // for bit.
+//
+// The kernel is a template on STAGE, for measuring what each part costs
+// (the port of scripts/probe_r5_kbisect.py::staged_kernel, which cut the
+// TPU kernel at the same places).  STAGE 6 is K3 and compiles to the same
+// code as before the template; the others stop early:
+//   1  slab test and per-ray count (ballot + popcount);     writes count
+//   2  + each hit's rank in the ballot, kept live;           writes count
+//   3  + packing: each cell's hits for the ray at ranks 0, 1, ... of a
+//      row that the next cell overwrites; the last candidate cell's row is
+//      written (t_near only), the wrapper's inf fill pads it
+//   4  + the k-buffer append: the first kbuf hits in candidate order,
+//      unsorted
+//   5  + the rank sort over all kbuf entries, padding included
+//   6  + the rank sort over min(count, kbuf) entries only (K3)
+// Every stage takes K3's dynamic shared memory, so the stages run at K3's
+// occupancy and their differences are work, not residency.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,7 +59,10 @@ constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int RPW = 4;                 // rays per warp: rt <= NWARPS * RPW
 
-template <bool EXIT>
+// an empty asm that reads v: v is computed, and nothing else happens
+__device__ __forceinline__ void keep_live(int v) { asm volatile("" ::"r"(v)); }
+
+template <bool EXIT, int STAGE>
 __global__ void __launch_bounds__(THREADS)
 spc_trace_kernel(const float* __restrict__ rays,
                  const int* __restrict__ cell_rows,
@@ -67,10 +86,12 @@ spc_trace_kernel(const float* __restrict__ rays,
   float ox[RPW], oy[RPW], oz[RPW], ix[RPW], iy[RPW], iz[RPW];
   float sx[RPW], sy[RPW], sz[RPW];
   int cnt[RPW];
+  int last[RPW];                       // STAGE 3: hits in the latest cell
 #pragma unroll
   for (int q = 0; q < RPW; ++q) {
     const int r = warp + q * NWARPS;
     cnt[q] = 0;
+    last[q] = 0;
     if (r < rt) {
       const float* ray = rays + ((size_t)a * rt + r) * 6;
       ox[q] = ray[0]; oy[q] = ray[1]; oz[q] = ray[2];
@@ -90,6 +111,7 @@ spc_trace_kernel(const float* __restrict__ rays,
     for (int q = 0; q < RPW; ++q) {
       const int r = warp + q * NWARPS;
       if (r >= rt) continue;           // warp-uniform
+      int in_cell = 0;                 // STAGE 3: the ray's hits in this cell
       for (int base = 0; base < cw; base += 32) {
         const int l = base + lane;
         bool hit = false;
@@ -110,16 +132,21 @@ spc_trace_kernel(const float* __restrict__ rays,
           }
         }
         const unsigned m = __ballot_sync(0xffffffffu, hit);
-        if (hit) {
-          const int pos = cnt[q] + __popc(m & below);
+        if (STAGE == 2) keep_live(__popc(m & below));
+        if (STAGE >= 3 && hit) {
+          const int pos = (STAGE == 3 ? in_cell : cnt[q]) + __popc(m & below);
           if (pos < kbuf) {
             ktn[r * kbuf + pos] = tn;
-            kpi[r * kbuf + pos] = pid;
-            if (EXIT) ktf[r * kbuf + pos] = tf;
+            if (STAGE >= 4) {
+              kpi[r * kbuf + pos] = pid;
+              if (EXIT) ktf[r * kbuf + pos] = tf;
+            }
           }
         }
         cnt[q] += __popc(m);
+        if (STAGE == 3) in_cell += __popc(m);
       }
+      if (STAGE == 3) last[q] = in_cell;
     }
   }
   __syncwarp();                        // a warp reads only its own rays
@@ -129,37 +156,56 @@ spc_trace_kernel(const float* __restrict__ rays,
   for (int q = 0; q < RPW; ++q) {
     const int r = warp + q * NWARPS;
     if (r >= rt) continue;
-    const int n = min(cnt[q], kbuf);
     const float* kt = ktn + r * kbuf;
     const size_t row = ((size_t)b * rt + r) * kbuf;
-    for (int i = lane; i < n; i += 32) {
-      const float ti = kt[i];
-      int rank = 0;
-      for (int j = 0; j < n; ++j) {
-        const float tj = kt[j];        // same address in every lane
-        rank += (tj < ti) || (tj == ti && j < i);
+    if (STAGE == 3) {
+      const int n = min(last[q], kbuf);
+      for (int i = lane; i < n; i += 32) tn_out[row + i] = kt[i];
+    } else if (STAGE == 4) {
+      const int n = min(cnt[q], kbuf);
+      for (int i = lane; i < n; i += 32) {
+        tn_out[row + i] = kt[i];
+        pi_out[row + i] = kpi[r * kbuf + i];
+        if (EXIT) tf_out[row + i] = ktf[r * kbuf + i];
       }
-      tn_out[row + rank] = ti;
-      pi_out[row + rank] = kpi[r * kbuf + i];
-      if (EXIT) tf_out[row + rank] = ktf[r * kbuf + i];
+    } else if (STAGE >= 5) {
+      int n = min(cnt[q], kbuf);
+      if (STAGE == 5) {                // pad, then sort all kbuf entries
+        for (int i = n + lane; i < kbuf; i += 32) {
+          ktn[r * kbuf + i] = INFINITY;
+          kpi[r * kbuf + i] = -1;
+          if (EXIT) ktf[r * kbuf + i] = INFINITY;
+        }
+        __syncwarp();
+        n = kbuf;
+      }
+      for (int i = lane; i < n; i += 32) {
+        const float ti = kt[i];
+        int rank = 0;
+        for (int j = 0; j < n; ++j) {
+          const float tj = kt[j];      // same address in every lane
+          rank += (tj < ti) || (tj == ti && j < i);
+        }
+        tn_out[row + rank] = ti;
+        pi_out[row + rank] = kpi[r * kbuf + i];
+        if (EXIT) tf_out[row + rank] = ktf[r * kbuf + i];
+      }
     }
     if (lane == 0) cnt_out[(size_t)b * rt + r] = cnt[q];
   }
 }
 
-}  // namespace
-
-extern "C" int spc_trace(const void* rays, const void* cell_rows,
-                         const void* block_cells, const void* nb,
-                         const void* block_ids, void* tn_out, void* tf_out,
-                         void* pi_out, void* cnt_out, int nA, int rt, int cw,
-                         int ckmax, int kbuf, float side, int with_exit,
-                         void* stream) {
+template <int STAGE>
+int launch(const void* rays, const void* cell_rows, const void* block_cells,
+           const void* nb, const void* block_ids, void* tn_out, void* tf_out,
+           void* pi_out, void* cnt_out, int nA, int rt, int cw, int ckmax,
+           int kbuf, float side, int with_exit, void* stream) {
   if (rt < 1 || rt > NWARPS * RPW || cw < 1 || kbuf < 1 || ckmax < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(int) * ((size_t)4 * cw +
                                      (size_t)rt * kbuf * (with_exit ? 3 : 2));
-  auto kernel = with_exit ? spc_trace_kernel<true> : spc_trace_kernel<false>;
+  auto kernel = with_exit ? spc_trace_kernel<true, STAGE>
+                          : spc_trace_kernel<false, STAGE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -171,4 +217,28 @@ extern "C" int spc_trace(const void* rays, const void* cell_rows,
         side);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K3 (stage 6), or the same kernel cut at `stage` 1-5 (see the top of this
+// file) for measuring its parts.
+extern "C" int spc_trace(const void* rays, const void* cell_rows,
+                         const void* block_cells, const void* nb,
+                         const void* block_ids, void* tn_out, void* tf_out,
+                         void* pi_out, void* cnt_out, int nA, int rt, int cw,
+                         int ckmax, int kbuf, float side, int with_exit,
+                         int stage, void* stream) {
+#define ARGS rays, cell_rows, block_cells, nb, block_ids, tn_out, tf_out, \
+    pi_out, cnt_out, nA, rt, cw, ckmax, kbuf, side, with_exit, stream
+  switch (stage) {
+    case 1: return launch<1>(ARGS);
+    case 2: return launch<2>(ARGS);
+    case 3: return launch<3>(ARGS);
+    case 4: return launch<4>(ARGS);
+    case 5: return launch<5>(ARGS);
+    case 6: return launch<6>(ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
 }

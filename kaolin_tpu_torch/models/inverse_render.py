@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.metrics.render import mask_iou
 from kaolin_tpu_torch.render import camera as camera_fns
 from kaolin_tpu_torch.render import mesh as mesh_render
@@ -44,7 +45,9 @@ class CameraViews(NamedTuple):
 def init_params(mesh, texture_res=256, generator=None, device=None):
     """Init params from a mesh with ``.vertices`` (normalized into
     [-0.5, 0.5]^3) and a uniform random texture drawn from ``generator``
-    (default: a CPU generator seeded with 0)."""
+    (default: a CPU generator seeded with 0), on ``device`` (default: the
+    card, see :func:`~kaolin_tpu_torch._device.entry_device`)."""
+    device = entry_device(device)
     v = torch.as_tensor(np.asarray(mesh.vertices), dtype=torch.float32,
                         device=device)
     vmin = v.amin(dim=0, keepdim=True)
@@ -60,7 +63,10 @@ def init_params(mesh, texture_res=256, generator=None, device=None):
 
 
 def from_jax_params(vertices, texture_map, sh_coeffs, device=None):
-    """The port's model from the JAX package's parameters (numpy arrays)."""
+    """The port's model from the JAX package's parameters (numpy arrays),
+    on ``device`` (default: the card)."""
+    device = entry_device(device)
+
     def t(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
     return InverseRender(t(vertices), t(texture_map), t(sh_coeffs))
@@ -68,7 +74,9 @@ def from_jax_params(vertices, texture_map, sh_coeffs, device=None):
 
 def make_views(num_views, distance=2.0, fovy=math.pi / 4., elevation=0.4,
                device=None):
-    """Build a turntable of camera views around the origin."""
+    """Build a turntable of camera views around the origin, on ``device``
+    (default: the card)."""
+    device = entry_device(device)
     azimuth = np.linspace(0, 2 * np.pi, num_views, endpoint=False)
     eye = np.stack([np.sin(azimuth) * np.cos(elevation),
                     np.full_like(azimuth, np.sin(elevation)),

@@ -9,6 +9,7 @@ and is the oracle of the device builder :func:`unbatched_mesh_to_spc_device`.
 import numpy as np
 import torch
 
+from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.ops.spc.device import (mesh_to_spc_device,
                                              pack_octree_device)
 from kaolin_tpu_torch.ops.spc.points import (points_to_morton,
@@ -17,7 +18,8 @@ from kaolin_tpu_torch.ops.spc.points import (points_to_morton,
 __all__ = ['unbatched_mesh_to_spc', 'unbatched_mesh_to_spc_device']
 
 
-def unbatched_mesh_to_spc_device(face_vertices, level, cap=2 ** 21):
+def unbatched_mesh_to_spc_device(face_vertices, level, cap=2 ** 21,
+                                 device=None):
     """Conservative mesh voxelization on the device of ``face_vertices``.
 
     Args:
@@ -26,13 +28,16 @@ def unbatched_mesh_to_spc_device(face_vertices, level, cap=2 ** 21):
         cap: max surviving (voxel, triangle) proposals per level; rows past
             it are dropped silently (see :func:`~kaolin_tpu_torch.ops.spc.
             device.mesh_to_spc_device`).
+        device: where to build (default: the device of a tensor input, the
+            card for a numpy one).
 
     Returns:
         (octree uint8, points (num_voxels, 3) int16 in morton order,
-        face_idx (num_voxels,) int64, bary (num_voxels, 2) float32), on the
-        input's device — the same as the host builder.
+        face_idx (num_voxels,) int64, bary (num_voxels, 2) float32), on that
+        device — the same as the host builder.
     """
-    face_vertices = torch.as_tensor(face_vertices)
+    face_vertices = torch.as_tensor(
+        face_vertices, device=entry_device(device, face_vertices))
     octree_p, counts, _, vox, tri, bary, n = mesh_to_spc_device(
         face_vertices.to(torch.float32), int(level), cap=int(cap))
     octree, nbytes = pack_octree_device(octree_p, counts, cap=int(cap))
@@ -67,7 +72,7 @@ def unbatched_mesh_to_spc(face_vertices, level):
         keep = _tri_aabb_sat(fv[tri], vox, l)
         vox, tri = vox[keep], tri[keep]
 
-    morton = points_to_morton(vox).numpy()
+    morton = points_to_morton(vox, 'cpu').numpy()
     order = np.lexsort((tri, morton))
     morton, vox, tri = morton[order], vox[order], tri[order]
     uniq = np.concatenate([[True], morton[1:] != morton[:-1]])

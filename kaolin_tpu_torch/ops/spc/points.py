@@ -13,6 +13,7 @@ JAX package keeps it in numpy uint64 on the host.
 import numpy as np
 import torch
 
+from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.ops.spc.device import morton_i64
 
 __all__ = ['quantize_points', 'points_to_morton', 'morton_to_points',
@@ -27,15 +28,18 @@ def quantize_points(x, level):
     return torch.clamp(qpts, 0, res - 1).to(torch.int16)
 
 
-def points_to_morton(points):
-    """(N, 3) integer coords (< 2^16) -> (N,) int64 morton codes, on the
-    points' device."""
-    return morton_i64(torch.as_tensor(points))
+def points_to_morton(points, device=None):
+    """(N, 3) integer coords (< 2^16) -> (N,) int64 morton codes, on
+    ``device`` (default: the points' device if a tensor, else the card)."""
+    return morton_i64(torch.as_tensor(points,
+                                      device=entry_device(device, points)))
 
 
-def morton_to_points(morton):
-    """(N,) morton codes -> (N, 3) int16 points."""
-    m = torch.as_tensor(morton).to(torch.int64)
+def morton_to_points(morton, device=None):
+    """(N,) morton codes -> (N, 3) int16 points, on ``device`` (default:
+    the codes' device if a tensor, else the card)."""
+    m = torch.as_tensor(morton, device=entry_device(device, morton)).to(
+        torch.int64)
     x = torch.zeros_like(m)
     y = torch.zeros_like(m)
     z = torch.zeros_like(m)
@@ -46,16 +50,17 @@ def morton_to_points(morton):
     return torch.stack([x, y, z], dim=-1).to(torch.int16)
 
 
-def unbatched_points_to_octree(points, level, sorted=False):
+def unbatched_points_to_octree(points, level, sorted=False, device=None):
     """Octree bytes (uint8, root first) from (N, 3) integer coords in
-    [0, 2^level), on the points' device.  Duplicates are allowed.
+    [0, 2^level), on ``device`` (default: the points' device if a tensor,
+    else the card).  Duplicates are allowed.
 
     Bottom-up: per level the sorted unique codes are grouped by parent and
     each parent's byte is the sum of its distinct child bits (== their OR).
     ``sorted`` is accepted for API parity and unused.
     """
     del sorted
-    morton = torch.unique(points_to_morton(points))
+    morton = torch.unique(points_to_morton(points, device))
     levels = []
     for _ in range(level):
         parents = morton >> 3
@@ -74,7 +79,7 @@ def unbatched_points_to_octree_np(points, level, sorted=False):
     """Host numpy variant of :func:`unbatched_points_to_octree` (uint8
     numpy array), used by ``ops.conversions.unbatched_mesh_to_spc``."""
     del sorted
-    morton = np.unique(points_to_morton(np.asarray(points)).numpy())
+    morton = np.unique(points_to_morton(np.asarray(points), 'cpu').numpy())
     levels = []
     for _ in range(level, 0, -1):
         parents = morton >> 3

@@ -7,6 +7,8 @@ from math import tan
 
 import torch
 
+from kaolin_tpu_torch._device import entry_device
+
 __all__ = [
     'rotate_translate_points',
     'generate_rotate_translate_matrices',
@@ -66,7 +68,8 @@ def perspective_camera(points, camera_proj):
 
 def generate_perspective_projection(fovyangle, ratio=1.0,
                                     dtype=torch.float32, device=None):
-    """(3, 1) perspective projection vector for :func:`perspective_camera`."""
+    """(3, 1) perspective projection vector for :func:`perspective_camera`,
+    on ``device`` (default: the card)."""
     tanfov = tan(fovyangle / 2.0)
     return torch.tensor([[1.0 / (ratio * tanfov)], [1.0 / tanfov], [-1]],
-                        dtype=dtype, device=device)
+                        dtype=dtype, device=entry_device(device))

@@ -14,6 +14,7 @@ row 0 at the top.
 
 import torch
 
+from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.render.mesh._fused import fused_selection
 
 __all__ = ['rasterize', 'rasterize_selection']
@@ -32,7 +33,9 @@ def _resolve_backend(backend):
 
 def pixel_coords(height, width, multiplier, dtype=torch.float32,
                  device=None):
-    """Pixel-center coordinates: xs (W,), ys (H,)."""
+    """Pixel-center coordinates: xs (W,), ys (H,), on ``device`` (default:
+    the card)."""
+    device = entry_device(device)
     xs = (multiplier / width) * (
         2 * torch.arange(width, dtype=dtype, device=device) + 1 - width)
     ys = (multiplier / height) * (

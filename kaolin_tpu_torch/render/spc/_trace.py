@@ -16,6 +16,12 @@ Rows of blocks that are not active keep those defaults.  CPU tensors run
 :func:`_trace_torch`, the plain PyTorch version; CUDA tensors launch
 ``spc_trace_kernel`` (``csrc/spc_trace.cu``) or raise.  ``LAUNCHES`` counts
 kernel launches.
+
+:func:`trace_staged` is the same kernel cut at one of six stages (slab
+test, ballot ranks, packing, k-buffer append, sort of every k-buffer entry,
+K3's sort), the port of ``scripts/probe_r5_kbisect.py::staged_kernel``; it
+measures what each part of K3 costs.  Its plain version is
+:func:`_trace_staged_torch`.
 """
 
 import ctypes
@@ -24,9 +30,10 @@ import torch
 
 from kaolin_tpu_torch.render.spc.raytrace import voxel_slab
 
-__all__ = ['trace', 'LAUNCHES']
+__all__ = ['trace', 'trace_staged', 'LAUNCHES']
 
-LAUNCHES = {'trace': 0}
+STAGES = (1, 2, 3, 4, 5, 6)  # the cuts of trace_staged; 6 is K3
+LAUNCHES = {'trace': 0, **{f'stage{s}': 0 for s in STAGES}}
 
 _PLAIN_BLOCK = 1 << 22      # (ray, voxel) pairs per chunk of the plain version
 _THREADS = 256              # threads per block of the kernel
@@ -45,7 +52,14 @@ def _outputs(num_blocks, rt, kbuf, device):
 
 def _trace_torch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
                  with_exit, num_blocks):
-    """Plain PyTorch version of K3 (same arguments as :func:`trace`).
+    """Plain PyTorch version of K3 (same arguments as :func:`trace`)."""
+    return _trace_staged_torch(6, rays, cell_rows, block_cells, nb,
+                               block_ids, kbuf, half, with_exit, num_blocks)
+
+
+def _trace_staged_torch(stage, rays, cell_rows, block_cells, nb, block_ids,
+                        kbuf, half, with_exit, num_blocks):
+    """Plain PyTorch version of :func:`trace_staged` (stage 6 is K3's).
 
     Dense over (ray, candidate voxel) pairs, in chunks of active blocks of
     at most ``_PLAIN_BLOCK`` pairs; each chunk is padded to its widest
@@ -76,23 +90,37 @@ def _trace_torch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
         r = rays[a0:a1, :, None]                               # (n, rt, 1, 6)
         tn, tf = voxel_slab(q, side, r[..., :3], r[..., 3:])   # (n, rt, Ccw)
         hit = (tf > tn) & (tf > 0.) & (tn > 0.) & (pid >= 0)[:, None]
-        rank = torch.cumsum(hit, dim=-1) - 1
-        keep = hit & (rank < kbuf)
-        dst = torch.where(keep, rank, kbuf)
-
-        def pack(x, fill):
-            buf = torch.full((n, rt, kbuf + 1), fill, dtype=x.dtype,
-                             device=device)
-            return buf.scatter_(2, dst, torch.where(keep, x, fill))[..., :kbuf]
-
-        tn_k, order = torch.sort(pack(tn, torch.inf), dim=-1, stable=True)
         bids = block_ids[a0:a1]
-        tn_out[bids] = tn_k
-        pi_out[bids] = pack(pid[:, None].expand(n, rt, -1), -1).gather(
-            -1, order)
-        if with_exit:
-            tf_out[bids] = pack(tf, torch.inf).gather(-1, order)
         cnt_out[bids] = hit.sum(dim=-1, dtype=torch.int32)
+        pid = pid[:, None].expand(n, rt, -1)
+        if stage == 3:      # the last candidate cell's hits, in lane order
+            last = (nb[a0:a1].long() - 1).clamp(min=0)[:, None, None, None]
+            hit, tn = (x.reshape(n, rt, C, cw).gather(
+                2, last.expand(n, rt, 1, cw))[:, :, 0] for x in (hit, tn))
+        if stage >= 3:
+            rank = torch.cumsum(hit, dim=-1) - 1
+            keep = hit & (rank < kbuf)
+            dst = torch.where(keep, rank, kbuf)
+
+            def pack(x, fill):
+                buf = torch.full((n, rt, kbuf + 1), fill, dtype=x.dtype,
+                                 device=device)
+                return buf.scatter_(2, dst, torch.where(keep, x, fill))[
+                    ..., :kbuf]
+
+            tn_k = pack(tn, torch.inf)
+            order = None
+            if stage >= 5:
+                tn_k, order = torch.sort(tn_k, dim=-1, stable=True)
+            tn_out[bids] = tn_k
+            if stage >= 4:
+                pi_k = pack(pid, -1)
+                pi_out[bids] = pi_k if order is None else pi_k.gather(
+                    -1, order)
+                if with_exit:
+                    tf_k = pack(tf, torch.inf)
+                    tf_out[bids] = tf_k if order is None else tf_k.gather(
+                        -1, order)
         a0 = a1
     return tn_out, tf_out, pi_out, cnt_out
 
@@ -115,16 +143,17 @@ def _lib():
     lib = _cuda.load('spc_trace')
     if lib.spc_trace.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.spc_trace.argtypes = [p, p, p, p, p, p, p, p, p,
-                                  i, i, i, i, i, f, i, p]
+        lib.spc_trace.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f,
+                                  i, i, p]
         lib.spc_trace.restype = ctypes.c_int
     return lib
 
 
 def _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-            with_exit, out):
-    """Launch K3 into preallocated outputs ``out`` = (t_near, t_far, pidx,
-    count), as :func:`_outputs` makes them; rows of blocks not in
+            with_exit, out, stage=6, counter='trace'):
+    """Launch K3 (``stage`` 6) or its cut at ``stage`` into preallocated
+    outputs ``out`` = (t_near, t_far, pidx, count), as :func:`_outputs`
+    makes them, and add one to ``LAUNCHES[counter]``; rows of blocks not in
     ``block_ids`` are not touched."""
     device = rays.device
     nA, rt = rays.shape[:2]
@@ -148,26 +177,29 @@ def _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
             f'at most {_MAX_SMEM} B of k-buffer and cell row in shared '
             f'memory; got rays_per_tile={rt}, kbuf={kbuf}, cell width {cw} '
             f'({smem} B)')
+    if stage not in STAGES:
+        raise ValueError(f'stage must be one of {STAGES}, got {stage}')
     if nA == 0:
         return out
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in (
         rays, cell_rows, block_cells, nb, block_ids, *out)]
-    rc = _lib().spc_trace(
-        *ptr, nA, rt, cw, ckmax, kbuf, float(2. * half), int(bool(with_exit)),
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    args = [*ptr, nA, rt, cw, ckmax, kbuf, float(2. * half),
+            int(bool(with_exit))]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    rc = _lib().spc_trace(*args, int(stage), stream)
     if rc != 0:
         raise RuntimeError(f'spc_trace_kernel failed to launch: cudaError {rc}')
-    LAUNCHES['trace'] += 1
+    LAUNCHES[counter] += 1
     return out
 
 
 def _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-                with_exit, num_blocks):
-    """Allocate the outputs and launch K3; same contract as the plain
-    version."""
+                with_exit, num_blocks, stage=6, counter='trace'):
+    """Allocate the outputs and launch K3 (or its cut at ``stage``); same
+    contract as the plain version."""
     out = _outputs(num_blocks, rays.shape[1], kbuf, rays.device)
     return _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-                   with_exit, out)
+                   with_exit, out, stage, counter)
 
 
 def trace(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
@@ -197,3 +229,37 @@ def trace(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
         raise ValueError(f'no spc trace for device {rays.device}')
     return _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf,
                        half, with_exit, num_blocks)
+
+
+def trace_staged(stage, rays, cell_rows, block_cells, nb, block_ids, kbuf,
+                 half, with_exit, num_blocks):
+    """K3 cut at ``stage``, for measuring its parts (arguments as
+    :func:`trace`).
+
+    What each stage adds, and what it writes over the defaults:
+
+    1. the slab tests and the exact per-ray count: count only;
+    2. each hit's rank among the ray's hits (kept, unused): count only;
+    3. the packing of each cell's hits: t_near holds the ray's hits in the
+       block's last candidate cell, in lane order (first kbuf), inf after;
+    4. the k-buffer append: the first kbuf hits in candidate order,
+       unsorted (t_near, pidx, and t_far when ``with_exit``);
+    5. a sort by t_near of all kbuf entries, padding included;
+    6. the sort of the min(count, kbuf) kept entries only: K3's output.
+
+    Stages 5 and 6 give the same result; they differ in cost.  CPU tensors
+    run :func:`_trace_staged_torch`; CUDA tensors launch the kernel's
+    ``STAGE`` instance (counted in ``LAUNCHES[f'stage{stage}']``) or
+    raise.
+    """
+    if rays.device.type == 'cpu':
+        if stage not in STAGES:
+            raise ValueError(f'stage must be one of {STAGES}, got {stage}')
+        return _trace_staged_torch(stage, rays, cell_rows, block_cells, nb,
+                                   block_ids, kbuf, half, with_exit,
+                                   num_blocks)
+    if rays.device.type != 'cuda':
+        raise ValueError(f'no spc trace for device {rays.device}')
+    return _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf,
+                       half, with_exit, num_blocks, stage=stage,
+                       counter=f'stage{stage}')

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.render.spc import _trace
 from kaolin_tpu_torch.render.spc.raytrace import (inverse_direction,
                                                   voxel_slab)
@@ -271,29 +272,19 @@ def build_cell_table(point_hierarchy, pyramid, level, cell_shift=3,
     return CellTable(rows, blo, bhi, int(level), off, overflow)
 
 
-def _cull_blocks(blo, bhi, origin, direction, rt, cs, segments, ne_cap):
-    """Beam culling of the ``'mosaic'`` engine: K3's inputs.
+def _cull_candidates(blo, bhi, o, d, cs, ck_max):
+    """Culling, first stage: beam boxes, super-tile x cell test (first
+    ``cs`` kept), block x candidate test (first ``ck_max`` kept).
 
-    origin/direction (N, 3) with N a whole number of super-tiles (64 * rt
-    rays); blo/bhi (Mc + 1, 3) cell bounds.  Super-tiles take their first
-    ``cs`` candidate cells, blocks refine that list (first ``segments[0][1]``
-    kept); the non-empty blocks (first ``ne_cap``) are sorted by candidate
-    count, descending and stable, and position p in that order gets the
-    cell cap of the segment that holds p.
-
-    Returns (rays (nA, rt, 6) f32 [origin, 1 / direction], block_cells
-    (nA, ckmax) int32, nb (nA,) int32, block_ids (nA,) int64, saturated
-    () bool tensor, nB).
+    o/d (nB, rt, 3) f32 with nB a whole number of super-tiles.  Returns
+    (n_b (nB,) candidate count per block, blk_ids (nB, ck_max) int64 cell
+    ids padded with Mc, saturated () bool tensor).
     """
-    N = origin.shape[0]
-    nB = N // rt
+    nB = o.shape[0]
     nS = nB // 64
     Mc = blo.shape[0] - 1
-    o = origin.to(torch.float32).reshape(nB, rt, 3)
-    d = direction.to(torch.float32).reshape(nB, rt, 3)
     (olo_b, ohi_b, dlo_b, dhi_b), (olo_s, ohi_s, dlo_s, dhi_s) = \
         _beam_bounds(o, d, nS)
-
     cand_s = _beam_chunk_test(olo_s[:, None], ohi_s[:, None], dlo_s[:, None],
                               dhi_s[:, None], blo[None, :Mc], bhi[None, :Mc])
     sat = (cand_s.sum(dim=1) > cs).any()
@@ -303,13 +294,22 @@ def _cull_blocks(blo, bhi, origin, direction, rt, cs, segments, ne_cap):
         dlo_b.reshape(nS, 64, 1, 3), dhi_b.reshape(nS, 64, 1, 3),
         blo[sup_ids][:, None], bhi[sup_ids][:, None]).reshape(nB, cs)
     n_b = cand_b.sum(dim=-1)
-    ck_max = segments[0][1]
     sat |= (n_b > ck_max).any()
     gids = sup_ids[:, None].expand(nS, 64, cs).reshape(nB, cs)
     blk_ids = _first_k(cand_b, ck_max, Mc, ids=gids)           # (nB, ck_max)
+    return n_b, blk_ids, sat
 
+
+def _order_blocks(n_b, segments, ck_max, ne_cap):
+    """Culling, second stage: the non-empty blocks (first ``ne_cap``),
+    sorted by candidate count, descending and stable; position p in that
+    order gets the cell cap of the segment that holds p.
+
+    Returns (block_ids (nA,) int64, nb (nA,) int32 cells to read,
+    saturated () bool tensor).
+    """
     ne_ids = torch.nonzero(n_b > 0).squeeze(1)
-    sat |= ne_ids.shape[0] > ne_cap
+    sat = ne_ids.shape[0] > ne_cap
     ne_ids = ne_ids[:ne_cap]
     nA = ne_ids.shape[0]
     n_ne = n_b[ne_ids]
@@ -321,12 +321,42 @@ def _cull_blocks(blo, bhi, origin, direction, rt, cs, segments, ne_cap):
     for cap, ckb in segments:
         stop = min(start + cap, nA) if cap else nA
         seg_cap[start:stop] = min(ckb, ck_max)
-        sat |= (n_sorted[start:stop] > ckb).any()
+        sat = sat | (n_sorted[start:stop] > ckb).any()
         start = stop
+    return block_ids, torch.minimum(n_sorted, seg_cap).to(torch.int32), sat
+
+
+def _gather_inputs(o, d, blk_ids, block_ids):
+    """Culling, last stage: the active blocks' rays (origin, 1 / direction)
+    and candidate cell lists, in the sorted order, as K3 reads them."""
     rays = torch.cat([o, inverse_direction(d)], dim=-1)[block_ids]
-    return (rays.contiguous(), blk_ids[block_ids].to(torch.int32).contiguous(),
-            torch.minimum(n_sorted, seg_cap).to(torch.int32), block_ids,
-            sat, nB)
+    return (rays.contiguous(),
+            blk_ids[block_ids].to(torch.int32).contiguous())
+
+
+def _cull_blocks(blo, bhi, origin, direction, rt, cs, segments, ne_cap):
+    """Beam culling of the ``'mosaic'`` engine: K3's inputs.
+
+    origin/direction (N, 3) with N a whole number of super-tiles (64 * rt
+    rays); blo/bhi (Mc + 1, 3) cell bounds.  Super-tiles take their first
+    ``cs`` candidate cells, blocks refine that list (first ``segments[0][1]``
+    kept); the non-empty blocks (first ``ne_cap``) are sorted by candidate
+    count, descending and stable, and position p in that order gets the
+    cell cap of the segment that holds p.  Three stages:
+    :func:`_cull_candidates`, :func:`_order_blocks`, :func:`_gather_inputs`.
+
+    Returns (rays (nA, rt, 6) f32 [origin, 1 / direction], block_cells
+    (nA, ckmax) int32, nb (nA,) int32, block_ids (nA,) int64, saturated
+    () bool tensor, nB).
+    """
+    nB = origin.shape[0] // rt
+    o = origin.to(torch.float32).reshape(nB, rt, 3)
+    d = direction.to(torch.float32).reshape(nB, rt, 3)
+    ck_max = segments[0][1]
+    n_b, blk_ids, sat = _cull_candidates(blo, bhi, o, d, cs, ck_max)
+    block_ids, nb, sat_o = _order_blocks(n_b, segments, ck_max, ne_cap)
+    rays, block_cells = _gather_inputs(o, d, blk_ids, block_ids)
+    return rays, block_cells, nb, block_ids, sat | sat_o, nB
 
 
 def _pad_rays(origin, direction, rt):
@@ -340,16 +370,12 @@ def _pad_rays(origin, direction, rt):
                        torch.ones((rpad, 3), device=device)]))
 
 
-def trace_inputs(cell_table, origin, direction, rays_per_tile=16, knum=64,
-                 segments=None, max_super_voxels=None,
-                 max_active_blocks=None):
-    """The ``'mosaic'`` engine's culling: K3's arguments for a ray set, as a
-    dict of the keyword arguments of :func:`._trace.trace` but
-    ``with_exit``, and the culling's saturation flag.  Arguments as in
-    :func:`unbatched_raytrace_coherent`."""
-    rt = int(rays_per_tile)
-    origin, direction = _pad_rays(origin, direction, rt)
-    nB = origin.shape[0] // rt
+def _cull_settings(cell_table, num_blocks, knum=64, segments=None,
+                   max_super_voxels=None, max_active_blocks=None):
+    """The ``'mosaic'`` engine's culling settings for ``num_blocks`` ray
+    blocks (arguments as in :func:`unbatched_raytrace_coherent`): (kbuf,
+    segments with a last open cap, cells kept per super-tile, most active
+    blocks)."""
     Mc = cell_table.rows.shape[0] - 1
     cw = cell_table.rows.shape[2]
     kbuf = max(64, 1 << int(np.ceil(np.log2(max(2, knum)))))
@@ -360,10 +386,25 @@ def trace_inputs(cell_table, origin, direction, rays_per_tile=16, knum=64,
         segs.append((None, segs[-1][1]))
     cs = min(Mc, max(segs[0][1], int(max_super_voxels or 98304) // cw))
     if max_active_blocks is None:
-        max_active_blocks = max(1024, nB // 2)
+        max_active_blocks = max(1024, num_blocks // 2)
+    return kbuf, segs, cs, min(num_blocks, int(max_active_blocks))
+
+
+def trace_inputs(cell_table, origin, direction, rays_per_tile=16, knum=64,
+                 segments=None, max_super_voxels=None,
+                 max_active_blocks=None):
+    """The ``'mosaic'`` engine's culling: K3's arguments for a ray set, as a
+    dict of the keyword arguments of :func:`._trace.trace` but
+    ``with_exit``, and the culling's saturation flag.  Arguments as in
+    :func:`unbatched_raytrace_coherent`."""
+    rt = int(rays_per_tile)
+    origin, direction = _pad_rays(origin, direction, rt)
+    kbuf, segs, cs, ne_cap = _cull_settings(
+        cell_table, origin.shape[0] // rt, knum, segments, max_super_voxels,
+        max_active_blocks)
     rays, cells, nb, bids, sat, nB = _cull_blocks(
         cell_table.blo, cell_table.bhi, origin, direction, rt, cs, segs,
-        min(nB, int(max_active_blocks)))
+        ne_cap)
     return dict(rays=rays, cell_rows=cell_table.rows, block_cells=cells,
                 nb=nb, block_ids=bids, kbuf=kbuf,
                 half=1.0 / (1 << cell_table.level), num_blocks=nB), sat
@@ -391,7 +432,7 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
                                 block_group=None, grid_shape=None,
                                 engine='auto', cell_table=None,
                                 segments=None, max_active_blocks=None,
-                                with_exit=True):
+                                with_exit=True, device=None):
     """Trace a coherent ray set against an SPC octree.
 
     Same inputs as :func:`~kaolin_tpu_torch.render.spc.raytrace.
@@ -425,13 +466,15 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
         max_active_blocks: ``'mosaic'``: most non-empty blocks traced
             (default: half the blocks, at least 1024).
         with_exit: also return exit depths (else ``t_far`` is all inf).
+        device: where to trace (default: the device of the tensor inputs,
+            the card for numpy ones).
     """
+    device = entry_device(device, origin, direction, point_hierarchy)
     pyramid = torch.as_tensor(pyramid)
     V = int(pyramid[0, level])
     off = int(pyramid[1, level])
-    origin = torch.as_tensor(origin)
-    direction = torch.as_tensor(direction)
-    device = origin.device
+    origin = torch.as_tensor(origin, device=device)
+    direction = torch.as_tensor(direction, device=device)
     N = origin.shape[0]
     RT = int(rays_per_tile)
     if engine == 'auto':
@@ -450,7 +493,9 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
 
     if engine == 'mosaic':
         if cell_table is None:
-            cell_table = build_cell_table(point_hierarchy, pyramid, level)
+            cell_table = build_cell_table(
+                torch.as_tensor(point_hierarchy, device=device), pyramid,
+                level)
         args, sat = trace_inputs(cell_table, origin, direction, RT, knum,
                                  segments, max_super_voxels,
                                  max_active_blocks)
@@ -463,7 +508,8 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
     else:
         origin, direction = _pad_rays(origin, direction, RT)
         nB = origin.shape[0] // RT
-        leaf = point_hierarchy[off:off + V].to(torch.int32)
+        leaf = torch.as_tensor(point_hierarchy, device=device)[
+            off:off + V].to(torch.int32)
         vpad = (-V) % 64
         leaf = torch.cat([leaf, leaf.new_full((vpad, 3), -1)])
         M = leaf.shape[0] // 64

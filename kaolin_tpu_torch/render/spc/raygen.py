@@ -6,10 +6,12 @@ Port of ``kaolin_tpu/render/spc/raygen.py``; parity
 
 import torch
 
+from kaolin_tpu_torch._device import entry_device
+
 __all__ = ['generate_primary_rays', 'generate_shadow_rays']
 
 
-def generate_primary_rays(width, height, tf):
+def generate_primary_rays(width, height, tf, device=None):
     """Camera-matrix primary rays, one per pixel.
 
     For pixel index ``i``: ``px = i % width`` and ``py = i // height`` (the
@@ -20,12 +22,15 @@ def generate_primary_rays(width, height, tf):
     Args:
         width, height: image size.
         tf: (4, 4) row-vector transform matrix.
+        device: where to run (default: the device of a tensor ``tf``, the
+            card for a numpy one).
 
     Returns:
         (ray_o (num, 3), ray_d (num, 3)) float32, ``num = width * height``,
-        on the device of ``tf``.
+        on that device.
     """
-    tf = torch.as_tensor(tf, dtype=torch.float32)
+    tf = torch.as_tensor(tf, dtype=torch.float32,
+                         device=entry_device(device, tf))
     num = width * height
     i = torch.arange(num, dtype=torch.int64, device=tf.device)
     px = (i % width).to(torch.float32)
@@ -36,21 +41,23 @@ def generate_primary_rays(width, height, tf):
     return a[:3].expand(num, 3), b[:, :3]
 
 
-def generate_shadow_rays(ray_o, ray_d, light, plane):
+def generate_shadow_rays(ray_o, ray_d, light, plane, device=None):
     """Shadow rays toward a point light from ray/plane intersections.
 
     Each ray is intersected with ``plane`` ((4,): ax + by + cz + d = 0);
     hits with ``t > 0`` and ``|dir . n| > 1e-3`` are kept in order, and
-    each shadow ray starts at ``light`` pointing at its intersection.
+    each shadow ray starts at ``light`` pointing at its intersection.  It
+    runs on ``device`` (default: the device of the first tensor input, the
+    card for numpy inputs).
 
     Returns:
         (src (cnt, 3) — ``light`` repeated, dst (cnt, 3) unit directions
         light -> intersection, map (cnt,) int64 — index of the primary ray).
     """
-    ray_o = torch.as_tensor(ray_o, dtype=torch.float32)
-    ray_d = torch.as_tensor(ray_d, dtype=torch.float32)
-    light = torch.as_tensor(light, dtype=torch.float32)
-    plane = torch.as_tensor(plane, dtype=torch.float32)
+    device = entry_device(device, ray_o, ray_d, light, plane)
+    ray_o, ray_d, light, plane = (
+        torch.as_tensor(x, dtype=torch.float32, device=device)
+        for x in (ray_o, ray_d, light, plane))
     a = ray_o @ plane[:3] + plane[3]
     b = ray_d @ plane[:3]
     t = -a / torch.where(b.abs() > 1e-3, b, 1.)

@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.ops.spc.uint8 import popcount_table
 
 __all__ = [
@@ -128,7 +129,7 @@ def unbatched_raytrace(octree, point_hierarchy, pyramid, exsum, origin,
                        max_nuggets=None, trim=True, return_info=False,
                        chunk_rays=None, max_nuggets_coarse=None,
                        coarse_levels=0, max_hits_per_ray=None,
-                       max_steps=None):
+                       max_steps=None, device=None):
     """Trace rays against an SPC octree (BFS).
 
     Same arguments and results as the JAX package's ``unbatched_raytrace``:
@@ -154,6 +155,8 @@ def unbatched_raytrace(octree, point_hierarchy, pyramid, exsum, origin,
         max_nuggets_coarse, coarse_levels: a smaller capacity for the
             first ``coarse_levels`` levels.
         max_hits_per_ray, max_steps: deprecated, ignored.
+        device: where to trace (default: the device of the tensor inputs,
+            the card for numpy ones).
 
     Returns:
         (ridx int32, pidx int32[, depths][, info]).
@@ -163,6 +166,9 @@ def unbatched_raytrace(octree, point_hierarchy, pyramid, exsum, origin,
         raise ValueError(
             f'unbatched_raytrace: level={level} > 15 (SPC int16 coord '
             'limit, reference KAOLIN_SPC_MAX_LEVELS)')
+    device = entry_device(device, origin, direction, octree)
+    origin, direction, octree = (torch.as_tensor(x, device=device)
+                                 for x in (origin, direction, octree))
     num_rays = origin.shape[0]
     if max_nuggets is None:
         max_nuggets = num_rays * 8
@@ -188,7 +194,7 @@ def unbatched_raytrace(octree, point_hierarchy, pyramid, exsum, origin,
     n_coarse = min(int(coarse_levels), level - 1) if cap_c else 0
     caps = [cap_c if l < n_coarse else cap_chunk for l in range(level)]
 
-    exsum = torch.as_tensor(exsum)
+    exsum = torch.as_tensor(exsum, device=device)
     outs = []
     sat = False
     for start in range(0, num_rays, chunk_rays):

@@ -2,10 +2,13 @@
 
 Port of ``kaolin_tpu/rep/spc.py``: packed octree bytes plus their scan
 products (max_level, pyramids, exsum) and point hierarchies, computed
-lazily on first access on the octrees' device.
+lazily on first access on the octrees' device: the device of a tensor
+``octrees``, else ``device``, else the card.
 """
 
 import torch
+
+from kaolin_tpu_torch._device import entry_device
 
 __all__ = ['Spc']
 
@@ -19,14 +22,18 @@ class Spc:
         max_level / pyramids / exsum / point_hierarchies: optional
             precomputed scan products (computed lazily otherwise).
         features: optional packed per-point features at the deepest level.
+        device: where the octrees live (default: the device of a tensor
+            ``octrees``, the card for a numpy one).
     """
 
     KEYS = {'octrees', 'lengths', 'max_level', 'pyramids', 'exsum',
             'point_hierarchies'}
 
     def __init__(self, octrees, lengths, max_level=None, pyramids=None,
-                 exsum=None, point_hierarchies=None, features=None):
-        self.octrees = torch.as_tensor(octrees)
+                 exsum=None, point_hierarchies=None, features=None,
+                 device=None):
+        self.octrees = torch.as_tensor(octrees,
+                                       device=entry_device(device, octrees))
         self.lengths = torch.as_tensor(lengths).cpu().to(torch.int32)
         self._max_level = max_level
         self._pyramids = pyramids
@@ -66,10 +73,14 @@ class Spc:
         return self._point_hierarchies
 
     @classmethod
-    def from_list(cls, octrees_list):
-        """Build from a list of single octree byte tensors."""
+    def from_list(cls, octrees_list, device=None):
+        """Build from a list of single octree byte tensors or arrays, on
+        ``device`` (default: the device of the first tensor, the card for
+        arrays)."""
+        device = entry_device(device, *octrees_list)
         lengths = [len(o) for o in octrees_list]
-        octrees = torch.cat([torch.as_tensor(o, dtype=torch.uint8)
+        octrees = torch.cat([torch.as_tensor(o, dtype=torch.uint8,
+                                             device=device)
                              for o in octrees_list])
         return cls(octrees=octrees, lengths=lengths)
 

@@ -1,0 +1,118 @@
+"""The port's entry points run on the card unless the caller asks.
+
+With no ``device`` and numpy inputs each entry point returns CUDA tensors
+when a card is available and raises otherwise (no silent CPU path);
+``device='cpu'`` runs on the CPU; tensor inputs keep their device.  Whether
+there is a card is decided inside each test.
+"""
+import numpy as np
+import pytest
+import torch
+
+from kaolin_tpu_torch.models import inverse_render as M
+from kaolin_tpu_torch.ops.conversions.trianglemesh import (
+    unbatched_mesh_to_spc_device)
+from kaolin_tpu_torch.ops.spc import (generate_points, morton_to_points,
+                                      points_to_morton, scan_octrees,
+                                      unbatched_points_to_octree)
+from kaolin_tpu_torch.render.camera import generate_perspective_projection
+from kaolin_tpu_torch.render.mesh.rasterization import pixel_coords
+from kaolin_tpu_torch.render.spc import (generate_primary_rays,
+                                         generate_shadow_rays,
+                                         unbatched_raytrace)
+from kaolin_tpu_torch.render.spc.raster import unbatched_raytrace_coherent
+from kaolin_tpu_torch.rep import Spc
+from kaolin_tpu_torch.utils.testing import camera_grid, uv_sphere
+
+LEVEL = 3
+
+
+class _Mesh:
+    vertices = uv_sphere(8, 5).vertices
+
+
+def _spc_numpy():
+    """A small octree and rays, all numpy."""
+    s = uv_sphere(8, 5)
+    fv = (s.vertices * 0.5)[s.faces]
+    octree = unbatched_mesh_to_spc_device(fv, LEVEL, device='cpu')[0]
+    _, pyr, exsum = scan_octrees(octree, [octree.shape[0]])
+    ph = generate_points(octree, pyr, exsum)
+    o, d = camera_grid(8)
+    return (octree.numpy(), ph.numpy(), pyr[0].numpy(), exsum.numpy(), o,
+            d, fv)
+
+
+def _coherent(device=None):
+    octree, ph, pyr, exsum, o, d, _ = _spc_numpy()
+    return unbatched_raytrace_coherent(octree, ph, pyr, exsum, o, d, LEVEL,
+                                       engine='mosaic', knum=16,
+                                       device=device).t_near
+
+
+def _bfs(device=None):
+    octree, ph, pyr, exsum, o, d, _ = _spc_numpy()
+    return unbatched_raytrace(octree, ph, pyr, exsum, o, d, LEVEL,
+                              device=device)[0]
+
+
+ENTRY = {
+    'init_params': lambda device=None: M.init_params(
+        _Mesh, texture_res=4, device=device).vertices,
+    'from_jax_params': lambda device=None: M.from_jax_params(
+        np.zeros((3, 3)), np.zeros((3, 2, 2)), np.zeros(9),
+        device=device).texture_map,
+    'make_views': lambda device=None: M.make_views(
+        2, device=device).camera_rot,
+    'unbatched_mesh_to_spc_device': lambda device=None:
+        unbatched_mesh_to_spc_device(_spc_numpy()[-1], LEVEL,
+                                     device=device)[0],
+    'unbatched_raytrace_coherent': _coherent,
+    'unbatched_raytrace': _bfs,
+    'generate_primary_rays': lambda device=None: generate_primary_rays(
+        4, 4, np.eye(4), device=device)[1],
+    'generate_shadow_rays': lambda device=None: generate_shadow_rays(
+        np.zeros((2, 3)), np.array([[0., 0., 1.], [0., 1., 1.]]),
+        np.array([0., 2., 2.]), np.array([0., 0., 1., -1.]),
+        device=device)[1],
+    'generate_perspective_projection': lambda device=None:
+        generate_perspective_projection(0.8, device=device),
+    'pixel_coords': lambda device=None: pixel_coords(4, 4, 1000.,
+                                                     device=device)[0],
+    'points_to_morton': lambda device=None: points_to_morton(
+        np.array([[1, 2, 3]]), device=device),
+    'morton_to_points': lambda device=None: morton_to_points(
+        np.array([53]), device=device),
+    'unbatched_points_to_octree': lambda device=None:
+        unbatched_points_to_octree(np.array([[1, 2, 3]]), 2, device=device),
+    'Spc': lambda device=None: Spc(np.array([1, 1], np.uint8), [2],
+                                   device=device).octrees,
+    'Spc.from_list': lambda device=None: Spc.from_list(
+        [np.array([1, 1], np.uint8)], device=device).octrees,
+}
+
+
+@pytest.mark.parametrize('name', list(ENTRY))
+def test_default_device_is_the_card(name):
+    if torch.cuda.is_available():
+        assert ENTRY[name]().device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ENTRY[name]()
+
+
+@pytest.mark.parametrize('name', list(ENTRY))
+def test_cpu_on_request(name):
+    out = ENTRY[name](device='cpu')
+    assert out.device.type == 'cpu' and out.numel() > 0
+
+
+def test_tensor_inputs_keep_their_device():
+    octree, ph, pyr, exsum, o, d, fv = _spc_numpy()
+    t = [torch.as_tensor(x) for x in (octree, ph, exsum, o, d, fv)]
+    assert unbatched_mesh_to_spc_device(t[5], LEVEL)[0].device.type == 'cpu'
+    hits = unbatched_raytrace_coherent(t[0], t[1], pyr, t[2], t[3], t[4],
+                                       LEVEL, engine='mosaic', knum=16)
+    assert hits.t_near.device.type == 'cpu' and int(hits.count.sum()) > 0
+    ridx = unbatched_raytrace(t[0], t[1], pyr, t[2], t[3], t[4], LEVEL)[0]
+    assert ridx.device.type == 'cpu' and ridx.numel() > 0

@@ -208,7 +208,9 @@ def test_port_imports_no_jax():
             'from kaolin_tpu_torch.ops.spc import device; '
             'from kaolin_tpu_torch.ops import conversions; '
             'from kaolin_tpu_torch import _cuda, rep; '
-            'from kaolin_tpu_torch.utils import testing; '
+            'from kaolin_tpu_torch.utils import measure, testing; '
+            'from kaolin_tpu_torch.probes import _kernels, kbisect, '
+            'mosaic3, stages; '
             'bad = [m for m in sys.modules '
             "if m == 'jax' or m.startswith(('jax.', 'kaolin_tpu.'))]; "
             'print(bad); sys.exit(1 if bad else 0)')

@@ -65,8 +65,9 @@ def jax_run(scene):
 
 
 def _torch_inputs(scene):
-    return (MT.from_jax_params(scene['verts'], scene['tex'], scene['sh']),
-            MT.make_views(VIEWS), torch.as_tensor(scene['faces']),
+    return (MT.from_jax_params(scene['verts'], scene['tex'], scene['sh'],
+                               device='cpu'),
+            MT.make_views(VIEWS, device='cpu'), torch.as_tensor(scene['faces']),
             torch.as_tensor(scene['face_uvs']))
 
 
@@ -89,7 +90,7 @@ def test_uv_sphere():
 
 def test_make_views_and_init_params():
     v_j = MJ.make_views(4)
-    v_t = MT.make_views(4)
+    v_t = MT.make_views(4, device='cpu')
     for a, b in zip(v_j, v_t):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6)
 
@@ -97,7 +98,8 @@ def test_make_views_and_init_params():
         vertices = uv_sphere(8, 5).vertices * 3. + 1.
     p_j = MJ.init_params(Mesh, texture_res=8)
     p_t = MT.init_params(Mesh, texture_res=8,
-                         generator=torch.Generator().manual_seed(3))
+                         generator=torch.Generator().manual_seed(3),
+                         device='cpu')
     np.testing.assert_allclose(p_t.vertices.detach().numpy(),
                                np.asarray(p_j.vertices), atol=1e-6)
     np.testing.assert_array_equal(p_t.sh_coeffs.detach().numpy(),
@@ -155,16 +157,17 @@ def test_adam_steps_reduce_loss():
     s = uv_sphere(12, 7)
     faces = torch.as_tensor(s.faces)
     face_uvs = torch.as_tensor(s.uvs[s.face_uvs_idx])
-    views = MT.make_views(2)
+    views = MT.make_views(2, device='cpu')
 
     class Mesh:
         vertices = s.vertices
     gt = MT.init_params(Mesh, texture_res=8,
-                        generator=torch.Generator().manual_seed(7))
+                        generator=torch.Generator().manual_seed(7),
+                        device='cpu')
     with torch.no_grad():
         target_images, target_masks, _ = MT.render_views(
             gt, views, faces, face_uvs, 32, 32)
-    params = MT.init_params(Mesh, texture_res=8)
+    params = MT.init_params(Mesh, texture_res=8, device='cpu')
     with torch.no_grad():
         params.vertices += 0.05 * torch.as_tensor(
             np.random.default_rng(0).standard_normal(s.vertices.shape),

@@ -105,6 +105,6 @@ def test_perspective_camera():
 @pytest.mark.parametrize('fovy, ratio', [(math.pi / 4, 1.), (0.7, 1.5)])
 def test_generate_perspective_projection(fovy, ratio):
     p_j = np.asarray(cam_j.generate_perspective_projection(fovy, ratio))
-    p_t = cam_t.generate_perspective_projection(fovy, ratio)
+    p_t = cam_t.generate_perspective_projection(fovy, ratio, device='cpu')
     assert p_t.shape == (3, 1) and p_t.dtype == torch.float32
     np.testing.assert_array_equal(p_t.numpy(), p_j)

@@ -1,0 +1,131 @@
+"""The probe kernels (P1, P2: ``csrc/probes.cu``; P3: the stages of K3 in
+``csrc/spc_trace.cu``) against their plain PyTorch versions.
+
+This file imports no JAX, so it also runs where only PyTorch is installed
+(on the card: ``python -m pytest --noconftest
+tests/test_torch_probe_kernels.py``).  Tests marked ``cuda`` need a CUDA
+card and skip elsewhere.  The CPU tests hold the plain versions of K3's
+stages against K3's plain version and a loop in numpy.
+
+Tolerance: exact.  Every kernel sums in its plain version's order (and is
+built with ``-fmad=false``), so floats are compared bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from kaolin_tpu_torch.probes import _kernels, kbisect, mosaic3, stages
+from kaolin_tpu_torch.render.spc import _trace
+
+from test_torch_spc_kernels import CASES, _assert_same, scene
+
+# evaluated when the test runs, not at import
+cuda = pytest.mark.skipif('not torch.cuda.is_available()',
+                          reason='needs a CUDA card (run on the H100)')
+
+
+def _last_cell_brute_force(args):
+    """Stage 3 as a loop in numpy: the t_near of each ray's hits in its
+    block's last candidate cell, in lane order, first kbuf."""
+    rays, rows = args['rays'].numpy(), args['cell_rows'].numpy()
+    kbuf, side = args['kbuf'], np.float32(2. * args['half'])
+    tn_out = np.full((args['num_blocks'], rays.shape[1], kbuf), np.inf,
+                     np.float32)
+    for a in range(rays.shape[0]):
+        nb = int(args['nb'][a])
+        if nb == 0:
+            continue
+        g = rows[int(args['block_cells'][a, nb - 1])]
+        lo = g[:3].T.astype(np.float32) * side - np.float32(1.)
+        for r in range(rays.shape[1]):
+            o, inv = rays[a, r, :3], rays[a, r, 3:]
+            t0 = (lo - o) * inv
+            t1 = t0 + side * inv
+            tn = np.minimum(t0, t1).max(axis=1)
+            tf = np.maximum(t0, t1).min(axis=1)
+            hit = (tf > tn) & (tf > 0) & (tn > 0) & (g[3] >= 0)
+            kept = tn[hit][:kbuf]
+            tn_out[int(args['block_ids'][a]), r, :len(kept)] = kept
+    return tn_out
+
+
+@pytest.mark.parametrize('with_exit', [True, False])
+def test_staged_plain_versions(with_exit):
+    """Stages 5 and 6 are K3; stages 1-2 write only the count; stage 4 is
+    K3's k-buffer before its stable sort; stage 3 holds the last cell's
+    hits."""
+    args = scene(5, 60000, 5, 'diagonal', 16, 64, zero_nb=True)
+    k3 = _trace._trace_torch(with_exit=with_exit, **args)
+    out = {s: _trace.trace_staged(s, with_exit=with_exit, **args)
+           for s in _trace.STAGES}
+    _assert_same(out[6], k3)
+    _assert_same(out[5], k3)
+    defaults = _trace._outputs(args['num_blocks'], args['rays'].shape[1],
+                               args['kbuf'], 'cpu')
+    for s in (1, 2):
+        _assert_same(out[s], defaults[:3] + (k3[3],))
+    tn4, order = torch.sort(out[4][0], dim=-1, stable=True)
+    _assert_same((tn4, out[4][1].gather(-1, order),
+                  out[4][2].gather(-1, order), out[4][3]), k3)
+    _assert_same((out[3][0],), (_last_cell_brute_force(args),))
+    _assert_same(out[3][1:], defaults[1:3] + (k3[3],))
+    assert int(k3[3].max()) > args['kbuf']
+    with pytest.raises(ValueError, match='stage'):
+        _trace.trace_staged(7, with_exit=with_exit, **args)
+
+
+@cuda
+@pytest.mark.parametrize('case', CASES)
+@pytest.mark.parametrize('with_exit', [True, False])
+@pytest.mark.parametrize('stage', _trace.STAGES)
+def test_cuda_trace_stage_matches_plain(case, with_exit, stage):
+    args = scene(*case, device='cuda', zero_nb=True)
+    n0 = _trace.LAUNCHES[f'stage{stage}']
+    out_k = _trace.trace_staged(stage, with_exit=with_exit, **args)
+    torch.cuda.synchronize()
+    assert _trace.LAUNCHES[f'stage{stage}'] == n0 + 1
+    out_p = _trace._trace_staged_torch(stage, with_exit=with_exit, **args)
+    _assert_same(out_k, out_p)
+    if stage == 6:
+        _assert_same(out_k, _trace.trace(with_exit=with_exit, **args))
+
+
+@cuda
+@pytest.mark.parametrize('scene_fn', [kbisect.probe_inputs,
+                                      kbisect.hit_scene])
+def test_cuda_trace_stages_probe_layout(scene_fn):
+    args = kbisect.from_probe_layout(*scene_fn(), 'cuda')
+    for with_exit in (True, False):
+        kbisect.check_stages(args, with_exit)
+
+
+@cuda
+@pytest.mark.parametrize('name', mosaic3.KERNELS)
+def test_cuda_p1_matches_plain(name):
+    inp = mosaic3.inputs('cuda')
+    inp['x'] = torch.randn(inp['x'].shape, device='cuda')
+    n0 = _kernels.LAUNCHES[name]
+    mosaic3.check(inp, (name,))
+    assert _kernels.LAUNCHES[name] == n0 + 1
+    if name in mosaic3.ROW_SUMS:
+        staging = mosaic3.inputs('cuda', 300, (4, 192), 5000, 61)
+        mosaic3.check(staging, (name,))
+
+
+@cuda
+def test_cuda_p2_matches_plain():
+    n0 = _kernels.LAUNCHES['dummy']
+    for n in (1, 1000, 65536):
+        stages.check_dummy(n, torch.device('cuda'))
+    assert _kernels.LAUNCHES['dummy'] == n0 + 6
+
+
+@cuda
+def test_cuda_probe_wrappers_check_inputs():
+    inp = mosaic3.inputs('cuda')
+    with pytest.raises(ValueError, match='ids'):
+        _kernels.kB(inp['ids'].long(), inp['table'], inp['x'])
+    with pytest.raises(ValueError, match='nbs'):
+        _kernels.kA(inp['nbs'][:3], inp['x'])
+    with pytest.raises(ValueError, match='x'):
+        _kernels.kE(inp['x'][..., :5])

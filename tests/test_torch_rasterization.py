@@ -44,7 +44,7 @@ def _assert_grads_close(g_j, g_t):
 def test_pixel_coords(hw):
     H, W = hw
     xs_j, ys_j = rast_j.pixel_coords(H, W, 1000.)
-    xs_t, ys_t = rast_t.pixel_coords(H, W, 1000.)
+    xs_t, ys_t = rast_t.pixel_coords(H, W, 1000., device='cpu')
     np.testing.assert_allclose(xs_t.numpy(), np.asarray(xs_j), rtol=1e-6)
     np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=1e-6)
 

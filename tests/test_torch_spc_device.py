@@ -124,8 +124,8 @@ def test_device_octree_raytraceable():
     """Device-built octree -> scan -> points -> BFS, against JAX."""
     level = 4
     fv = _octa_mesh()
-    octree, _, _, _ = unbatched_mesh_to_spc_device(torch.as_tensor(fv), level,
-                                                   cap=2 ** 12)
+    octree, _, _, _ = unbatched_mesh_to_spc_device(fv, level, cap=2 ** 12,
+                                                   device='cpu')
     max_level, pyramids, exsum = scan_octrees(octree, [octree.shape[0]])
     assert max_level == level
     ph = generate_points(octree, pyramids, exsum)
@@ -138,9 +138,8 @@ def test_device_octree_raytraceable():
     origin[:, 0] = np.linspace(-0.6, 0.6, n)
     direction = np.zeros((n, 3), np.float32)
     direction[:, 2] = 1.
-    out = unbatched_raytrace(octree, ph, pyramids[0], exsum,
-                             torch.as_tensor(origin),
-                             torch.as_tensor(direction), level)
+    out = unbatched_raytrace(octree, ph, pyramids[0], exsum, origin,
+                             direction, level, device='cpu')
     ref = jax_bfs(octree_j, ph_j, pyr_j[0], ex_j, origin, direction, level)
     assert out[0].shape[0] > 0
     for a, b in zip(ref, out):

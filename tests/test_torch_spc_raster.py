@@ -39,7 +39,8 @@ def _trace_both(j, t, o, d, level, **kw):
                                          **kw_j)
     ht = TRa.unbatched_raytrace_coherent(t[0], t[3], t[1], t[2],
                                          torch.as_tensor(o),
-                                         torch.as_tensor(d), level, **kw_t)
+                                         torch.as_tensor(d), level,
+                                         device='cpu', **kw_t)
     return hj, ht
 
 
@@ -221,9 +222,10 @@ def test_mosaic_vs_port_bfs_axis_aligned():
                         dtype=torch.float32)
     d = torch.tensor([[0., 0., 1.]]).repeat(side * side, 1)
     r1, p1, d1 = unbatched_raytrace(t[0], t[3], t[1], t[2], o, d, level,
-                                    with_exit=True)
+                                    with_exit=True, device='cpu')
     hits = TRa.unbatched_raytrace_coherent(t[0], t[3], t[1], t[2], o, d,
                                            level, rays_per_tile=16, knum=16,
+                                           device='cpu',
                                            cell_table=TRa.build_cell_table(
                                                t[3], t[1], level,
                                                cell_shift=1, cell_width=8))

@@ -46,7 +46,8 @@ def _rays(kind, n, seed):
 def _bfs_both(j, t, o, d, level, **kw):
     out_j = JR.unbatched_raytrace(j[0], j[3], j[1], j[2], o, d, level, **kw)
     out_t = TR.unbatched_raytrace(t[0], t[3], t[1], t[2], torch.as_tensor(o),
-                                  torch.as_tensor(d), level, **kw)
+                                  torch.as_tensor(d), level, device='cpu',
+                                  **kw)
     return out_j, out_t
 
 
