@@ -12,11 +12,16 @@ SH-lit render -> image L1 + mask IoU loss -> backward -> Adam) at 512^2,
    ``kaolin_tpu_torch/csrc`` is built at once, one ``nvcc`` each, into
    ``build/kaolin_tpu_torch/``;
 2. the forward kernel (K1) against its plain PyTorch version;
-3. the backward kernel (K2) against its plain PyTorch version;
+3. the backward kernel (K2) against its plain PyTorch version; the work
+   both kernels cull to (K1's evaluated (pixel, face) pairs beside those of
+   one CTA per tile walking whole chunks, its face lists per sub-tile, K2's
+   sub-tiles with a non-zero g*prod), counted in torch from their rules;
 4. 5 Adam steps; step 0's loss and gradients against the plain path (the
    same step on the CPU, where the wrappers run the plain versions);
 5. times (CUDA events after warm-up) of the step and of each kernel
-   beside its plain version.
+   beside its plain version; the step on the card's timeline
+   (``torch.profiler``): kernels per step, device busy and idle share, the
+   largest kernels.
 
 The SPC pipeline of BASELINE config #3 (mesh -> level-10 octree -> coherent
 trace of 1,048,576 camera rays -> per-ray opacity), on the same 10,000-face
@@ -273,6 +278,44 @@ def check_backward(scene, inputs, fid, prod):
     return g_prod, err
 
 
+def culling(scene, inputs, g_prod):
+    """Phase 3, continued: the work K1 and K2 cull to, counted in torch
+    from their rules (``_fused._cull_forward``, ``_fused._cull_backward``)
+    on this run's inputs."""
+    H = scene['height']
+    vt, tr, ctr, cbb = inputs
+    B, nC = vt.shape[:2]
+    _, _, TW = FU._tile_dims(*FU._padded_dims(H, H))
+    _, _, bounds = FU._tile_pixels(H, H, MULT, vt.device)
+    c = torch.arange(nC, device=vt.device)
+    visits = sum(int((FU._chunk_hits_tile(cbb[b], bounds) & (c >= tr[b, :, :1])
+                      & (c < tr[b, :, 1:])).sum()) for b in range(B))
+    lists = FU._cull_forward(vt, tr, cbb, H, H, MULT).sum(-1)
+    busy = lists[lists > 0].float()
+    visited, computed, nonzero = FU._cull_backward(ctr, cbb, g_prod, H, H,
+                                                   MULT)
+    res = dict(k1_pairs=int(lists.sum()) * FU._SUB ** 2,
+               k1_tile_pairs=visits * FU.FC * FU.PS * TW,
+               list_max=int(lists.max()), list_mean=busy.mean().item(),
+               subtiles=lists.numel(), empty=int((lists == 0).sum()),
+               k2_units=nonzero.numel(), k2_active=int(nonzero.sum()),
+               k2_visited=int(visited.sum()), k2_computed=int(computed.sum()),
+               k2_chunk_max=int(computed.sum(-1).max()))
+    print(f'K1 culling: {res["k1_pairs"]} (pixel, face) pairs evaluated by '
+          f'{FU._SUB} x {FU._SUB} sub-tiles, against {res["k1_tile_pairs"]} '
+          f'for one CTA per {FU.PS} x {TW} tile walking every face of each '
+          f'visited chunk ({visits} (tile, chunk) visits); face list per '
+          f'sub-tile max {res["list_max"]}, mean {res["list_mean"]:.2f} '
+          f'over the {lists.numel() - res["empty"]} non-empty of '
+          f'{lists.numel()} (sub-tile, view) CTAs')
+    print(f'K2 culling: {res["k2_active"]} of {res["k2_units"]} (8-row unit, '
+          f'view) sub-tiles hold a pixel with g*prod != 0; (chunk, unit) '
+          f'pairs visited {res["k2_visited"]}, computed on '
+          f'{res["k2_computed"]}; at most {res["k2_chunk_max"]} per chunk, '
+          f'so at most {-(-res["k2_chunk_max"] // FU._BWD_SLICES)} per CTA')
+    return res
+
+
 def _step(scene, params, selection=None):
     """compute_selection -> render_loss -> backward; returns the loss."""
     H = scene['height']
@@ -348,6 +391,40 @@ def train(scene, steps=STEPS):
     return launches
 
 
+def step_profile(scene, card, steps=3, top=8):
+    """The step on the card's timeline (``torch.profiler`` over ``steps``
+    steps after the timed ones): kernels per step, the union of their
+    intervals against the host clock (device busy and idle share), and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _step(scene, scene['params'])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = _cuda.BUILD_DIR / 'step_trace.json'
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    spans = sorted((e['ts'], e['ts'] + e['dur'], e['name']) for e in
+                   json.loads(path.read_text())['traceEvents']
+                   if e.get('cat') == 'kernel')
+    _check(len(spans) > 0, 'the profiler traced the card')
+    busy, end, by_name = 0., -np.inf, {}
+    for a, b, name in spans:
+        busy += max(0., b - max(a, end))
+        end = max(end, b)
+        by_name[name] = by_name.get(name, 0.) + (b - a) / 1e3 / steps
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    print(f'[{card}] step on the timeline ({steps} steps, profiled): '
+          f'{len(spans) / steps:.0f} kernels per step, device busy '
+          f'{busy / 1e3 / steps:.3f} ms of {wall / steps:.3f} ms per step '
+          f'(idle share {1 - busy / 1e3 / wall:.3f}), kernel time '
+          f'{sum(by_name.values()):.3f} ms per step; largest: ' + '; '.join(
+              f'{n[:48]} {ms:.3f}' for n, ms in heavy))
+
+
 def times(scene, inputs, g_prod, card):
     """Phase 5: device times after warm-up."""
     H = scene['height']
@@ -355,6 +432,7 @@ def times(scene, inputs, g_prod, card):
     F = scene['faces'].shape[0]
     vt, tr, ctr, cbb = inputs
     step_ms = time_ms(lambda: _step(scene, scene['params']), 5)
+    step_profile(scene, card)
     fwd = (vt, tr, cbb, H, H, MULT, EPS, SIGMAINV, True)
     bwd = (vt, ctr, cbb, g_prod, H, H, MULT, SIGMAINV)
     k1_ms = time_ms(lambda: FU._fused_forward_cuda(*fwd), 20)
@@ -848,6 +926,7 @@ def main():
     inputs = kernel_inputs(scene)
     fid, prod, k1_err = check_forward(scene, inputs)
     g_prod, k2_err = check_backward(scene, inputs, fid, prod)
+    culling(scene, inputs, g_prod)
     launches = train(scene)
     t = times(scene, inputs, g_prod, card)
 

@@ -15,6 +15,10 @@ the same of the CUDA port, with the scripts' names and inputs:
   (:func:`~kaolin_tpu_torch.render.spc._trace.trace_staged`), on the
   script's inputs, a scene with hits and the SPC cell.
 
+:mod:`.k1_clocks` has no TPU counterpart: it reads the per-CTA clocks of
+the forward kernel K1 at the DIB-R cell from an instrumented copy of its
+source, on the card only.
+
 Each has ``run(device)``: it checks every kernel against its plain version
 and, on CUDA, returns device times (CUDA events, mean after warm-up) with
 each function's bound, from :mod:`kaolin_tpu_torch.utils.measure` as

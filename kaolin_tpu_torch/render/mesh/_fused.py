@@ -12,11 +12,17 @@ to one with it:
    range of tiles it overlaps; an exact chunk-bbox test skips the rest.
 2. Forward kernel (``csrc/dibr_fused.cu``, ``fused_forward_kernel``): per
    pixel, the z-buffer winner among covering valid faces and the soft-mask
-   product ``prod(1 - p)`` over all faces whose enlarged bbox holds it.
+   product ``prod(1 - p)`` over all faces whose enlarged bbox holds it.  One
+   block per 16 x 16 sub-tile culls its tiles' chunk ranges to the faces
+   whose enlarged bbox meets it, then runs one pixel per thread over them.
 3. Backward kernel (``fused_backward_kernel``): the soft-mask gradient with
    respect to the scaled image-space vertices, with the CUDA
-   product-division rule ``dL/dp_k = g * prod / (1 - p_k + 1e-7)``; one
-   block per 64-face chunk owns its output rows, so there are no atomics.
+   product-division rule ``dL/dp_k = g * prod / (1 - p_k + 1e-7)``.  A
+   first pass marks the units (a tile's blocks of 8 rows x 32 or 16
+   columns) that hold a pixel with ``g * prod != 0``; each 64-face chunk
+   owns its output rows and deals its marked units, in order, to
+   ``_BWD_SLICES`` blocks, which write partial sums to a scratch buffer; a
+   last pass adds them in slice order, so there are no atomics.
 
 Each kernel has a plain PyTorch version of the same function beside it
 (:func:`_fused_forward_torch`, :func:`_fused_backward_torch`) that honours
@@ -38,6 +44,7 @@ __all__ = ['FusedSelection', 'fused_selection', 'softmask_fused',
 _EPS = 1e-7        # product-division epsilon of the soft-mask backward
 PS = 8             # pixel tile rows
 FC = 64            # faces per chunk
+_SUB = 16          # side of the forward kernel's sub-tiles
 
 # vt column layout of the (FC, _NCOL) per-chunk face table
 _W0 = 0            # w0 affine: c, cx, cy            (edge function 0)
@@ -53,6 +60,8 @@ _NCOL = 40         # 38 used, padded to a multiple of 8
 
 # elements per intermediate in one block of the plain versions
 _PLAIN_BLOCK = 1 << 22
+# blocks per chunk of the backward kernel (partial sums, added in order)
+_BWD_SLICES = 8
 
 LAUNCHES = {'fwd': 0, 'bwd': 0}
 
@@ -389,7 +398,8 @@ def _lib():
             p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, f, f, f, f, i, p]
         lib.dibr_fused_forward.restype = ctypes.c_int
         lib.dibr_fused_backward.argtypes = [
-            p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, f, f, f, p]
+            p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, f, f, f,
+            p]
         lib.dibr_fused_backward.restype = ctypes.c_int
     return lib
 
@@ -528,18 +538,21 @@ def _fused_backward_cuda(vt, chunk_tranges, chunk_bbox, g_prod, height,
     """Launch the backward kernel; same contract as the plain version."""
     device = vt.device
     B, nC = vt.shape[:2]
-    hp, wp = _padded_dims(height, width)
-    nI, nJ, TW = _tile_dims(hp, wp)
-    T = nI * nJ
+    nI, nJ, TW = _tile_dims(*_padded_dims(height, width))
     _check('vt', vt, torch.float32, (B, nC, FC, _NCOL), device)
     _check('chunk_tranges', chunk_tranges, torch.int32, (B, nC, 2), device)
     _check('chunk_bbox', chunk_bbox, torch.float32, (B, nC, 4), device)
     _check('g_prod', g_prod, torch.float32, (B, height, width), device)
     axp, bxp, ayp, byp = _pixel_affine(height, width, multiplier)
+    active = torch.empty((B, nI * nJ * (TW // _unit_width(TW))),
+                         dtype=torch.int32, device=device)
+    partial = torch.empty((B, nC, _BWD_SLICES, FC, 6), dtype=torch.float32,
+                          device=device)
     out = torch.empty((B, nC * FC, 6), dtype=torch.float32, device=device)
     rc = _lib().dibr_fused_backward(
         _ptr(chunk_tranges), _ptr(chunk_bbox), _ptr(vt), _ptr(g_prod),
-        _ptr(out), B, nC, T, height, width, nJ, TW, axp, bxp, ayp, byp,
+        _ptr(active), _ptr(partial), _ptr(out), B, nC, _BWD_SLICES,
+        nI * nJ, height, width, nJ, TW, axp, bxp, ayp, byp,
         float(sigmainv) / float(multiplier) ** 2,
         4. * float(multiplier) ** 2, _stream(device))
     _raise_on(rc, 'fused_backward_kernel')
@@ -563,6 +576,11 @@ def _fused_backward(vt, chunk_tranges, chunk_bbox, g_prod, height, width,
                                 height, width, multiplier, sigmainv)
 
 
+def _unit_width(TW):
+    """Columns of the backward kernel's units (blocks of PS rows)."""
+    return 32 if TW % 32 == 0 else 16
+
+
 def _tile_image(img, height, width):
     """(B, H, W) -> (B, T, PS*TW) in tile layout, zero padded."""
     B = img.shape[0]
@@ -580,6 +598,94 @@ def _untile(img, height, width):
     nI, nJ, TW = _tile_dims(hp, wp)
     img = img.reshape(B, nI, nJ, PS, TW).permute(0, 1, 3, 2, 4)
     return img.reshape(B, hp, wp)[:, :height, :width]
+
+
+# ---------------------------------------------------------------------------
+# the kernels' culling rules in plain PyTorch (for tests and work counts)
+
+def _pixel_bounds(r0, c0, rows, cols, axp, bxp, ayp, byp):
+    """Pixel-centre bounds (xlo, xhi, ylo, yhi) of the blocks of ``rows`` x
+    ``cols`` pixels at rows r0 and columns c0 (int tensors)."""
+    return (axp * c0.float() + bxp, axp * (c0 + cols - 1).float() + bxp,
+            ayp * (r0 + rows - 1).float() + byp, ayp * r0.float() + byp)
+
+
+def _box_hits(box, xlo, xhi, ylo, yhi):
+    """Closed test of boxes (..., 4) = (xlo, ylo, xhi, yhi) against bounds."""
+    return ((box[..., 0] <= xhi) & (box[..., 2] >= xlo)
+            & (box[..., 1] <= yhi) & (box[..., 3] >= ylo))
+
+
+def _cull_forward(vt, tile_ranges, chunk_bbox, height, width, multiplier):
+    """The face lists of the forward kernel's sub-tiles.
+
+    Sub-tile s (row-major over ``_SUB`` x ``_SUB`` blocks of the padded
+    image) walks the union of the chunk ranges of the tile rows it spans,
+    keeps the chunks whose bbox meets its pixel-centre bounds and, of
+    those, the faces whose enlarged bbox does (closed tests).
+
+    Returns (B, nS, nC*FC) bool: True where sorted face f is in the list
+    of sub-tile s.
+    """
+    B, nC = vt.shape[:2]
+    device = vt.device
+    hp, wp = _padded_dims(height, width)
+    nI, nJ, TW = _tile_dims(hp, wp)
+    nSI, nSJ = -(-hp // _SUB), wp // _SUB
+    axp, bxp, ayp, byp = _pixel_affine(height, width, multiplier)
+    r0 = torch.arange(nSI, device=device).repeat_interleave(nSJ) * _SUB
+    c0 = torch.arange(nSJ, device=device).repeat(nSI) * _SUB
+    xlo, xhi, ylo, yhi = (v[None, :, None] for v in _pixel_bounds(
+        r0, c0, _SUB, _SUB, axp, bxp, ayp, byp))
+    lo = torch.zeros((B, nSI * nSJ), dtype=torch.int32, device=device)
+    hi = torch.zeros_like(lo)
+    for k in range(_SUB // PS):                   # the tile rows spanned
+        ti = r0 // PS + k
+        r = tile_ranges[:, (ti.clamp(max=nI - 1) * nJ + c0 // TW)]
+        use = (ti < nI) & (r[..., 0] < r[..., 1])
+        lo = torch.where(use & (lo < hi), torch.minimum(lo, r[..., 0]),
+                         torch.where(use, r[..., 0], lo))
+        hi = torch.where(use, torch.maximum(hi, r[..., 1]), hi)
+    cidx = torch.arange(nC, device=device)
+    chunks = ((cidx >= lo[..., None]) & (cidx < hi[..., None])
+              & _box_hits(chunk_bbox[:, None], xlo, xhi, ylo, yhi))
+    faces = _box_hits(vt[:, None, :, :, _BB:_BB + 4], xlo[..., None],
+                      xhi[..., None], ylo[..., None], yhi[..., None])
+    return (chunks[..., None] & faces).reshape(B, nSI * nSJ, nC * FC)
+
+
+def _cull_backward(chunk_tranges, chunk_bbox, g_prod, height, width,
+                   multiplier):
+    """The units of the backward kernel's chunks.
+
+    A unit is a tile's 8 x SW block of pixels (SW = 32 where the tile
+    width allows it, else 16), numbered ``t * (TW // SW) + k``.  A chunk
+    visits the units of the tiles in its range whose pixel-centre bounds
+    its bbox meets; it computes on those with a pixel where g*prod != 0,
+    the i-th of them in slice ``i % _BWD_SLICES``.
+
+    Returns (visited (B, nC, U) bool, computed (B, nC, U) bool,
+    nonzero (B, U) bool: units holding a pixel with g*prod != 0).
+    """
+    B, nC = chunk_bbox.shape[:2]
+    device = chunk_bbox.device
+    hp, wp = _padded_dims(height, width)
+    nI, nJ, TW = _tile_dims(hp, wp)
+    sw = _unit_width(TW)
+    nsub = TW // sw
+    U = nI * nJ * nsub
+    axp, bxp, ayp, byp = _pixel_affine(height, width, multiplier)
+    u = torch.arange(U, device=device)
+    t = u // nsub
+    r0 = (t // nJ) * PS
+    c0 = (t % nJ) * TW + (u % nsub) * sw
+    bounds = _pixel_bounds(r0, c0, PS, sw, axp, bxp, ayp, byp)
+    visited = (_box_hits(chunk_bbox[:, :, None], *bounds)
+               & (t >= chunk_tranges[..., :1]) & (t < chunk_tranges[..., 1:]))
+    g = F.pad(g_prod != 0, (0, wp - width, 0, hp - height))
+    nonzero = g.reshape(B, nI, PS, nJ, nsub, sw).any(dim=5).any(dim=2)
+    nonzero = nonzero.reshape(B, U)
+    return visited, visited & nonzero[:, None], nonzero
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ['UVSphere', 'uv_sphere', 'random_triangles', 'camera_grid']
+__all__ = ['UVSphere', 'uv_sphere', 'random_triangles', 'camera_grid',
+           'EDGE_SCENES', 'dibr_edge_scene']
 
 
 def random_triangles(seed, F, B=2, spread=0.3):
@@ -24,6 +25,56 @@ def random_triangles(seed, F, B=2, spread=0.3):
     fvi = (cent + (fvi - cent) * spread).astype(np.float32)
     fvz = rng.uniform(0.1, 2.0, (B, F, 3)).astype(np.float32)
     return fvz, fvi
+
+
+EDGE_SCENES = ('ties', 'cluster', 'margin0', 'odd_100x72', 'odd_130x257',
+               'empty')
+
+
+def dibr_edge_scene(name, B=2):
+    """Scenes that probe the fused DIB-R kernels' culling and tie rules.
+
+    Returns (face_vertices_z (B, F, 3), face_vertices_image (B, F, 3, 2),
+    height, width, boxlen), numpy float32 and numbers:
+
+    - ``'ties'``: 150 random triangles, each twice: every covered pixel is
+      a z tie, which the lower sorted id (the first copy) wins;
+    - ``'cluster'``: 320 small triangles around one point of a 16 x 16
+      pixel block, among 80 random ones, so that one block's face list
+      holds more than 300 faces;
+    - ``'margin0'``: random triangles with ``boxlen = 0``: the enlarged
+      bbox is the triangle's own;
+    - ``'odd_100x72'``, ``'odd_130x257'``: image sides that are not
+      multiples of 16;
+    - ``'empty'``: every triangle off screen.
+    """
+    rng = np.random.default_rng(EDGE_SCENES.index(name) + 11)
+    height = width = 64
+    boxlen = 0.02
+    if name == 'ties':
+        fvz, fvi = random_triangles(5, 150, B)
+        fvz, fvi = np.concatenate([fvz] * 2, 1), np.concatenate([fvi] * 2, 1)
+    elif name == 'cluster':
+        fvz, fvi = random_triangles(6, 80, B)
+        # pixel centre of column 24, row 40 at 64 x 64: inside the block
+        # of columns 16-31, rows 32-47
+        centre = np.array([-1. + 49. / 64., 1. - 81. / 64.], np.float32)
+        small = centre + rng.uniform(-0.04, 0.04, (B, 320, 3, 2))
+        fvi = np.concatenate([fvi, small.astype(np.float32)], 1)
+        fvz = np.concatenate([fvz, rng.uniform(0.1, 2., (B, 320, 3))
+                              .astype(np.float32)], 1)
+    elif name == 'margin0':
+        fvz, fvi = random_triangles(7, 200, B)
+        boxlen = 0.
+    elif name.startswith('odd_'):
+        height, width = (int(v) for v in name[4:].split('x'))
+        fvz, fvi = random_triangles(8, 200, B)
+    elif name == 'empty':
+        fvz, fvi = random_triangles(9, 100, B)
+        fvi = fvi + np.float32(2.5)
+    else:
+        raise ValueError(f'unknown scene {name!r}; one of {EDGE_SCENES}')
+    return fvz, fvi, height, width, boxlen
 
 
 class UVSphere(NamedTuple):
