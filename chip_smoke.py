@@ -34,11 +34,18 @@ sphere scaled to radius 0.45 (~1.0M voxels at level 10):
    ``generate_points`` -> ``build_cell_table`` ->
    ``unbatched_raytrace_coherent`` -> ``hits_to_nuggets`` ->
    ``exponential_integration``), with K3's launch count read around it;
-7. K3 against its plain version on every active block of the scene;
+   every live pidx must lie in the leaf level (K3 adds the level's offset);
+7. K3 against its plain version on every active block of the scene, with
+   pidx offset 0 and with the level's; the main path's hits against the
+   trace whose offset is a ``torch.where`` pass after K3, bit for bit;
 8. K3 against its plain version on a dense random level-6 octree whose
-   rays hit more than 64 voxels and, some, more than the k-buffer;
+   rays hit more than 64 voxels and, some, more than the k-buffer, then on
+   the same octree with voxels taken out of and put into its cell rows
+   (rows with holes, empty rows, full rows with tied depths) and blocks
+   with no candidate cell; both offsets, with and without exit depths;
 9. the whole trace against the port's BFS on the 1,048,576 rays;
-10. times of the trace, K3, the cell table, the mesh builder and the BFS.
+10. times of the trace, of the trace with the offset pass after K3, of K3,
+    the cell table, the mesh-to-octree build and the BFS.
 
 The probes of K3 and of the card (``kaolin_tpu_torch.probes``, the port of
 the TPU probe scripts), each driven through its entry point ``run`` with
@@ -51,7 +58,7 @@ its kernels' launch counts set to 0 just before and read just after:
 12. P2, ``probes.stages``: the dummy kernel against 2 x, ns per CTA at
     65,536 and 262,144 CTAs beside ``torch.mul``; the trace of the SPC cell
     by stage (culling candidates, block order, gathers, the whole trace,
-    K3, output fills, pidx offset);
+    K3, output fills, the trace with the offset pass after K3);
 13. P3, ``probes.kbisect``: K3 cut at stages 1-6 against the plain version
     on the script's inputs, on a scene with rays past kbuf, and on phase
     8's dense level-6 octree; at the SPC cell every stage against plain
@@ -92,7 +99,8 @@ from kaolin_tpu_torch.render.spc.raster import (
     _block_order, build_cell_table, trace_inputs, unbatched_raytrace_coherent)
 from kaolin_tpu_torch.utils import measure
 from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
-from kaolin_tpu_torch.utils.testing import camera_grid, uv_sphere
+from kaolin_tpu_torch.utils.testing import (camera_grid, punch_cell_rows,
+                                            uv_sphere)
 
 HEIGHT = WIDTH = 512
 VIEWS = 4
@@ -598,14 +606,20 @@ def check_trace_kernel(spc):
     sphere scene, with the main path's settings."""
     args, sat = _trace_args(spc, TRACE['knum'])
     nb, rt = args['nb'], args['rays'].shape[1]
-    out_k = _trace._trace_cuda(with_exit=False, **args)
-    torch.cuda.synchronize()
+    off = spc['table'].offset
     out_p = _trace._trace_torch(with_exit=False, **args)
-    torch.cuda.synchronize()
+    same = True
+    for offset in (0, off):
+        out_k = _trace._trace_cuda(with_exit=False, pidx_offset=offset,
+                                   **args)
+        torch.cuda.synchronize()
+        moved = torch.where(out_p[2] >= 0, out_p[2] + offset, -1)
+        same &= _same_outputs(out_k, (out_p[0], out_p[1], moved, out_p[3]))
+    same_plain_off = torch.equal(moved, _trace._trace_torch(
+        with_exit=False, pidx_offset=off, **args)[2])
     N = spc['o'].shape[0]
     cnt = out_k[3].reshape(N)
     hit = cnt > 0
-    same = _same_outputs(out_k, out_p)
     main = spc['hits']
     same_main = (torch.equal(cnt, main.count) and torch.equal(
         _bits(out_k[0].reshape(N, -1)), _bits(main.t_near)))
@@ -619,14 +633,34 @@ def check_trace_kernel(spc):
           f'pairs, {tests} of them (ray, voxel) slab tests; hits per ray '
           f'max {int(cnt.max())}, mean '
           f'{cnt[hit].float().mean().item():.2f} over the {int(hit.sum())} '
-          f'rays that hit; count, pidx and t_near (bitwise) equal: {same}; '
-          f'max|dt| {err:.3e}; same rows as the main path: {same_main}; '
-          f'culling saturated {bool(sat)}')
+          f'rays that hit; count, pidx and t_near (bitwise) equal with '
+          f'pidx offset 0 and {off}: {same}; max|dt| {err:.3e}; same rows '
+          f'as the main path: {same_main}; culling saturated {bool(sat)}')
     print(f'  for comparison, {FOX}')
     _check(same, 'K3 equals its plain version on the sphere scene')
+    _check(same_plain_off, 'the plain version adds the offset to live pidx')
     _check(same_main, 'the main path went through the same K3 rows')
     _check(not bool(sat), 'culling does not saturate')
     return args, err
+
+
+def _k3_vs_plain(args, offset, name):
+    """K3 against its plain version on ``args``, with pidx offset 0 and
+    ``offset``, with and without exit depths; (max |dt|, count)."""
+    err = 0.
+    for with_exit in (True, False):
+        for off in (0, offset):
+            out_k = _trace._trace_cuda(with_exit=with_exit, pidx_offset=off,
+                                       **args)
+            torch.cuda.synchronize()
+            out_p = _trace._trace_torch(with_exit=with_exit, pidx_offset=off,
+                                        **args)
+            torch.cuda.synchronize()
+            _check(_same_outputs(out_k, out_p),
+                   f'K3 equals its plain version, {name}, with_exit='
+                   f'{with_exit}, pidx_offset={off}')
+            err = max(err, _max_t_err(out_k, out_p))
+    return err, out_k[3]
 
 
 def check_dense(dev):
@@ -650,16 +684,28 @@ def check_dense(dev):
               max_super_voxels=64 * 4096)
     args, sat = trace_inputs(table, o, d, knum=DENSE['knum'], **kw)
     kbuf = args['kbuf']
-    err = 0.
-    for with_exit in (True, False):
-        out_k = _trace._trace_cuda(with_exit=with_exit, **args)
-        torch.cuda.synchronize()
-        out_p = _trace._trace_torch(with_exit=with_exit, **args)
-        torch.cuda.synchronize()
-        _check(_same_outputs(out_k, out_p),
-               f'K3 equals its plain version, dense, with_exit={with_exit}')
-        err = max(err, _max_t_err(out_k, out_p))
-    cnt = out_k[3]
+    err, cnt = _k3_vs_plain(args, table.offset, 'dense')
+    # the same scene with voxels taken out of and put into the rows, and
+    # every third block without a candidate cell
+    odd = dict(args, cell_rows=torch.as_tensor(punch_cell_rows(
+        args['cell_rows'].cpu().numpy(), DENSE['seed']), device=dev),
+        nb=args['nb'].clone())
+    odd['nb'][::3] = 0
+    live = odd['cell_rows'][:, 3] >= 0
+    fill = (live * torch.arange(1, live.shape[1] + 1, device=dev)).amax(1)
+    kinds = dict(full=int(live.all(1).sum()), empty=int((~live.any(1)).sum()),
+                 holes=int((live.sum(1) < fill).sum()))
+    err_odd, cnt_odd = _k3_vs_plain(odd, table.offset, 'dense with holes')
+    print(f'K3 vs plain, the dense octree\'s rows punched: {kinds["holes"]} '
+          f'rows with a hole before their last voxel, {kinds["empty"]} '
+          f'empty, {kinds["full"]} full (tied depths), '
+          f'{int((odd["nb"] == 0).sum())} blocks with nb = 0; hits per ray '
+          f'max {int(cnt_odd.max())}, {int((cnt_odd > kbuf).sum())} rays > '
+          f'kbuf {kbuf}; equal (bitwise) with both offsets, with and '
+          f'without exit depths')
+    _check(min(kinds.values()) > 0 and int((cnt_odd > kbuf).sum()) > 0,
+           'punched rows of every kind, counts past kbuf')
+    err = max(err, err_odd)
     trace = dict(engine='mosaic', cell_table=table, **kw)
     sat_k = unbatched_raytrace_coherent(octree, ph, pyramids[0], exsum, o, d,
                                         L, knum=DENSE['knum'], **trace)
@@ -669,7 +715,8 @@ def check_dense(dev):
           f'{args["nb"].shape[0]} active blocks, candidate cells per block '
           f'max {int(args["nb"].max())}; hits per ray max {int(cnt.max())}, '
           f'{int((cnt > 64).sum())} rays > 64, {int((cnt > kbuf).sum())} '
-          f'> kbuf {kbuf}; equal (bitwise) with and without exit depths; '
+          f'> kbuf {kbuf}; equal (bitwise) with pidx offset 0 and '
+          f'{table.offset}, with and without exit depths; '
           f'saturated at knum {DENSE["knum"]}: {bool(sat_k.saturated)}, '
           f'at knum 256: {bool(sat_256.saturated)}')
     _check(not bool(sat), 'dense culling does not saturate')
@@ -732,15 +779,19 @@ def spc_times(spc, args, card):
     N = spc['o'].shape[0]
     trace_ms = time_ms(lambda: unbatched_raytrace_coherent(
         *trace_args, engine='mosaic', cell_table=spc['table'], **TRACE), 5)
+    # once: the trace as it was before K3 wrote the final pidx
+    same_after = _same_outputs(spc['hits'], stages.trace_offset_after(spc))
+    after_ms = time_ms(lambda: stages.trace_offset_after(spc), 5)
     launch = {k: v for k, v in args.items() if k != 'num_blocks'}
     out = _trace._outputs(args['num_blocks'], args['rays'].shape[1],
                           args['kbuf'], spc['o'].device)
+    off = spc['table'].offset
     k3_ms = time_ms(lambda: _trace._launch(with_exit=False, out=out,
-                                            **launch), 20)
-    k3_alloc_ms = time_ms(
-        lambda: _trace._trace_cuda(with_exit=False, **args), 20)
-    k3_plain_ms = time_ms(
-        lambda: _trace._trace_torch(with_exit=False, **args), 2)
+                                            pidx_offset=off, **launch), 20)
+    k3_alloc_ms = time_ms(lambda: _trace._trace_cuda(
+        with_exit=False, pidx_offset=off, **args), 20)
+    k3_plain_ms = time_ms(lambda: _trace._trace_torch(
+        with_exit=False, pidx_offset=off, **args), 2)
     table_ms = time_ms(lambda: build_cell_table(
         spc['ph'], spc['pyramid'], SPC_LEVEL, **CELLS), 5)
     build_ms = time_ms(lambda: unbatched_mesh_to_spc_device(
@@ -749,7 +800,10 @@ def spc_times(spc, args, card):
                                                  with_exit=True), 2)
     print(f'[{card}] trace (culling + K3 + outputs, {N} rays, knum '
           f'{TRACE["knum"]}): {trace_ms:.3f} ms = {N / trace_ms / 1e3:.3f} '
-          f'Mrays/s')
+          f'Mrays/s; with the pidx offset as a torch.where pass after K3 '
+          f'(K3 at offset 0): {after_ms:.3f} ms, its hits equal to the main '
+          f'path\'s bit for bit: {same_after}')
+    _check(same_after, 'K3\'s fused offset equals the offset pass after it')
     print(f'[{card}] K3 spc_trace_kernel {k3_ms:.4f} ms (into allocated '
           f'outputs; {k3_alloc_ms:.4f} ms with their allocation and fill), '
           f'plain {k3_plain_ms:.4f} ms')
@@ -867,7 +921,8 @@ def probe_p2(spc, card):
     cell = {k: spc[k] for k in ('octree', 'ph', 'pyramid', 'exsum', 'table',
                                 'o', 'd')}
     t0 = time.perf_counter()
-    res, counts = _probe_path(stages.run, spc['o'].device, cell=cell)
+    res, counts = _probe_path(stages.run, spc['o'].device, cell=cell,
+                              offset_after=False)       # phase 10 has it
     print(f'P2 dummy kernel vs 2 x: bitwise equal; launches {counts["dummy"]}'
           f'; {time.perf_counter() - t0:.1f} s')
     for n, t in res['dummy'].items():
@@ -880,7 +935,7 @@ def probe_p2(spc, card):
           f'{tr["s1"]:.3f} ms, S1b + order {tr["s1b"]:.3f} ms, S2 + gathers '
           f'{tr["s2"]:.3f} ms, S3 whole trace {tr["s3"]:.3f} ms; on their '
           f'own: K3 {tr["k3"]:.3f} ms, output allocation + fills '
-          f'{tr["fills"]:.3f} ms, pidx offset {tr["pidx_offset"]:.3f} ms')
+          f'{tr["fills"]:.3f} ms')
     _check(counts['dummy'] >= 1, 'the P2 kernel launched on its path')
     _check(not res['counts']['saturated'], 'the staged trace does not '
            'saturate')

@@ -5,7 +5,7 @@ find which one Mosaic refused.  Here the same cuts are instances of K3's
 own kernel (:func:`~kaolin_tpu_torch.render.spc._trace.trace_staged`,
 ``csrc/spc_trace.cu``), and the question is what each part costs: the
 stages' times at the SPC cell's K3 inputs, and each stage's delta over the
-one before, are K3's breakdown into slab tests, ballot ranks, packing,
+one before, are K3's breakdown into slab tests, hit ranks, packing,
 k-buffer append and sort.
 
 Inputs in the script's layout: rays (NBS, RT, 8) with columns 0-5 =
@@ -34,9 +34,13 @@ __all__ = ['RT', 'CW', 'KBUF', 'CKB', 'NBS', 'HALF', 'probe_inputs',
 
 RT, CW, KBUF, CKB, NBS = 16, 192, 256, 8, 64    # the script's shapes
 HALF = 1.0 / 1024                               # voxel half side, level 10
-# float32 operations of K3's function, counted from csrc/spc_trace.cu
-PAIR_FLOPS = 22     # a (ray, voxel) slab test: 3 x (sub, mul, add), 5 min /
-#                     max for t_near, 5 for t_far, 3 compares
+# float32 operations K3's function needs: the fewest known to reach the
+# plain version's bits (csrc/spc_trace.cu::slab).  The plain version
+# (raytrace.voxel_slab and the hit rule) spends 22 on a pair: a min and a
+# max per axis where a sum with the step split by sign does, and tf > 0,
+# which tf > tn > 0 implies
+PAIR_FLOPS = 18     # a (ray, voxel) slab test: 3 x (sub, mul, add n, add p),
+#                     2 max for t_near, 2 min for t_far, 2 compares
 VOXEL_FLOPS = 9     # a voxel's corner: 3 x (int -> float, mul, sub)
 RAY_FLOPS = 3       # a ray's side / direction: 3 mul
 ITERS = 20          # timed launches of each stage

@@ -12,8 +12,11 @@ trivial Pallas kernel (``dummy_kernel``, P2).  Here:
 * S2 = S1b + :func:`~kaolin_tpu_torch.render.spc.raster._gather_inputs`
   (K3's rays and candidate lists): the whole culling;
 * S3 = ``unbatched_raytrace_coherent`` with the prebuilt cell table;
-* on their own: K3 into allocated outputs, the allocation and fill of the
-  three k-buffer outputs, and the pidx offset pass;
+* on their own: K3 into allocated outputs, and the allocation and fill of
+  the three k-buffer outputs;
+* S3 as it was before K3 wrote the final pidx (:func:`trace_offset_after`:
+  K3 with offset 0, then a pass ``where(pidx >= 0, pidx + offset, -1)`` over
+  the whole k-buffer): S3 beside it is what the fused offset saves;
 
 all on the SPC cell of ``chip_smoke.py`` (uv_sphere(100, 51) at radius
 0.45, level 10, 1024^2 rays, rt 32, knum 256, the bench's segments), and
@@ -29,11 +32,12 @@ from kaolin_tpu_torch.probes import (_kernels, main, max_abs_err, same_bits,
                                      seeded, spc_cell)
 from kaolin_tpu_torch.render.spc import _trace
 from kaolin_tpu_torch.render.spc.raster import (
-    _cull_candidates, _cull_settings, _gather_inputs, _order_blocks,
-    _pad_rays, trace_inputs, unbatched_raytrace_coherent)
+    CoherentHits, _cull_candidates, _cull_settings, _gather_inputs,
+    _order_blocks, _pad_rays, _trace_cells, trace_inputs,
+    unbatched_raytrace_coherent)
 from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
 
-__all__ = ['NSTEPS', 'STEP', 'dummy_inputs', 'run']
+__all__ = ['NSTEPS', 'STEP', 'dummy_inputs', 'trace_offset_after', 'run']
 
 NSTEPS = (65536, 262144)        # the script's grid sizes
 STEP = (8, 128)                 # one grid step's block
@@ -60,6 +64,21 @@ def check_dummy(nsteps, device):
             raise RuntimeError('the dummy kernel differs from 2 x')
         err = max(err, max_abs_err(out, ref))
     return err
+
+
+def trace_offset_after(cell):
+    """The trace of the SPC cell with the pidx offset as a pass of its own:
+    K3 writes leaf indices (``pidx_offset`` 0) and ``torch.where`` adds the
+    level's offset to the live ones afterwards.  The same
+    :class:`CoherentHits` as ``unbatched_raytrace_coherent`` gives, bit for
+    bit, at the cost of a read and a write of the pidx buffer."""
+    table = cell['table']
+    tns, tfs, pis, cnt, sat = _trace_cells(
+        table, cell['o'], cell['d'], TRACE['rays_per_tile'], TRACE['knum'],
+        TRACE['segments'], TRACE['max_super_voxels'],
+        TRACE['max_active_blocks'], TRACE['with_exit'], pidx_offset=0)
+    pis = torch.where(pis >= 0, pis + table.offset, -1)
+    return CoherentHits(tns, tfs, pis, cnt, sat)
 
 
 def _culling(cell):
@@ -95,13 +114,16 @@ def _culling(cell):
     return dict(s1=s1, s1b=s1b, s2=s2, s3=s3, nB=nB, rt=rt)
 
 
-def run(device='cuda', cell=None):
+def run(device='cuda', cell=None, offset_after=True):
     """Check the dummy kernel and the staged culling; on CUDA time them.
 
     ``cell``: a :func:`~kaolin_tpu_torch.probes.spc_cell` (default: the SPC
     cell on CUDA, a level-5 sphere with 64^2 rays on the CPU).  Returns
     dict(dummy={nsteps: {...}}, trace={stage: ms}, counts); no times on
-    the CPU.
+    the CPU.  Raises if the stages do not compose to ``trace_inputs`` or if
+    the trace differs from :func:`trace_offset_after`; ``offset_after``
+    False leaves that comparison and its time (``s3_offset_after``) out, for
+    a caller that has made them.
     """
     device = torch.device(device)
     cuda = device.type == 'cuda'
@@ -128,6 +150,10 @@ def run(device='cuda', cell=None):
         raise RuntimeError('the culling stages do not compose to '
                            'trace_inputs')
     hits = st['s3']()
+    if offset_after and not same_bits(tuple(hits),
+                                      tuple(trace_offset_after(cell))):
+        raise RuntimeError('the trace with the offset written by K3 differs '
+                           'from the trace with the offset pass after it')
     res['counts'] = dict(active_blocks=int(block_ids.shape[0]),
                          blocks=st['nB'], candidate_cells=int(nb.sum()),
                          hits=int(hits.count.sum()),
@@ -149,17 +175,16 @@ def run(device='cuda', cell=None):
     out = _trace._outputs(args['num_blocks'], st['rt'], args['kbuf'],
                           device)
     launch = {k: v for k, v in args.items() if k != 'num_blocks'}
-    pis = hits.pidx
-    off = int(cell['pyramid'][1, cell['table'].level])
     res['trace'] = dict(
         s1=time_ms(st['s1'], ITERS), s1b=time_ms(st['s1b'], ITERS),
         s2=time_ms(st['s2'], ITERS), s3=time_ms(st['s3'], ITERS),
         k3=time_ms(lambda: _trace._launch(with_exit=TRACE['with_exit'],
                                           out=out, **launch), ITERS),
         fills=time_ms(lambda: _trace._outputs(
-            args['num_blocks'], st['rt'], args['kbuf'], device), ITERS),
-        pidx_offset=time_ms(
-            lambda: torch.where(pis >= 0, pis + off, -1), ITERS))
+            args['num_blocks'], st['rt'], args['kbuf'], device), ITERS))
+    if offset_after:
+        res['trace']['s3_offset_after'] = time_ms(
+            lambda: trace_offset_after(cell), ITERS)
     return res
 
 

@@ -6,19 +6,31 @@ voxel of the block's candidate cells and writes a per-ray k-buffer:
 
 * hits in candidate order (cell slot ``0..nb-1``, then lane ``0..cw-1``),
   hit rule ``tf > tn & tf > 0 & tn > 0 & pid >= 0`` with the slab test of
-  ``raytrace.voxel_slab``;
+  ``raytrace.voxel_slab``; a row may hold ``-1`` in any of its slots;
 * the exact count; when it exceeds ``kbuf`` only the first ``kbuf`` hits in
   candidate order are kept (saturation is flagged upstream);
-* the kept hits sorted by t_near, ties in candidate order; padding is
-  ``inf`` / ``-1``, and ``t_far`` stays ``inf`` when ``with_exit`` is False.
+* the kept hits sorted by t_near, ties in candidate order; a kept hit's
+  pidx is its slot's leaf index plus ``pidx_offset``; padding is ``inf`` /
+  ``-1``, and ``t_far`` stays ``inf`` when ``with_exit`` is False.
 
 Rows of blocks that are not active keep those defaults.  CPU tensors run
 :func:`_trace_torch`, the plain PyTorch version; CUDA tensors launch
 ``spc_trace_kernel`` (``csrc/spc_trace.cu``) or raise.  ``LAUNCHES`` counts
 kernel launches.
 
+The kernel, in short (its source says more): one warp per active block,
+one ray per lane, warps that share nothing.  The warp stages a cell row in
+shared memory with the slots that hold a voxel packed to the front (a
+ballot) as float corners and final pidx, so the slab tests run over voxels
+only and convert nothing; each lane then tests its ray against the packed
+voxels, four at a time, one broadcast read each.  A lane that hits appends
+at position count of its ray's output row, which serves as the k-buffer; at
+the end the warp reads each row back and rank-sorts it in place.  The
+shared memory is one staged unit per warp, whatever ``rays_per_tile`` is
+(the sort reuses it).
+
 :func:`trace_staged` is the same kernel cut at one of six stages (slab
-test, ballot ranks, packing, k-buffer append, sort of every k-buffer entry,
+test, hit ranks, packing, k-buffer append, sort of every k-buffer entry,
 K3's sort), the port of ``scripts/probe_r5_kbisect.py::staged_kernel``; it
 measures what each part of K3 costs.  Its plain version is
 :func:`_trace_staged_torch`.
@@ -36,9 +48,12 @@ STAGES = (1, 2, 3, 4, 5, 6)  # the cuts of trace_staged; 6 is K3
 LAUNCHES = {'trace': 0, **{f'stage{s}': 0 for s in STAGES}}
 
 _PLAIN_BLOCK = 1 << 22      # (ray, voxel) pairs per chunk of the plain version
-_THREADS = 256              # threads per block of the kernel
-_MAX_RT = 32                # rays per block the kernel takes (4 per warp)
 _MAX_SMEM = 232448          # dynamic shared memory a block can use (H100)
+# the kernel's shape, as csrc/spc_trace.cu sets it
+_THREADS = 64               # per CTA: one ray block per warp
+_MAX_RT = 32                # rays per block: one per lane
+_UNIT = 256                 # slots of a cell row staged at once
+_UNROLL = 4                 # voxels per step of the test loop
 
 
 def _outputs(num_blocks, rt, kbuf, device):
@@ -51,14 +66,15 @@ def _outputs(num_blocks, rt, kbuf, device):
 
 
 def _trace_torch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-                 with_exit, num_blocks):
+                 with_exit, num_blocks, pidx_offset=0):
     """Plain PyTorch version of K3 (same arguments as :func:`trace`)."""
     return _trace_staged_torch(6, rays, cell_rows, block_cells, nb,
-                               block_ids, kbuf, half, with_exit, num_blocks)
+                               block_ids, kbuf, half, with_exit, num_blocks,
+                               pidx_offset)
 
 
 def _trace_staged_torch(stage, rays, cell_rows, block_cells, nb, block_ids,
-                        kbuf, half, with_exit, num_blocks):
+                        kbuf, half, with_exit, num_blocks, pidx_offset=0):
     """Plain PyTorch version of :func:`trace_staged` (stage 6 is K3's).
 
     Dense over (ray, candidate voxel) pairs, in chunks of active blocks of
@@ -92,6 +108,7 @@ def _trace_staged_torch(stage, rays, cell_rows, block_cells, nb, block_ids,
         hit = (tf > tn) & (tf > 0.) & (tn > 0.) & (pid >= 0)[:, None]
         bids = block_ids[a0:a1]
         cnt_out[bids] = hit.sum(dim=-1, dtype=torch.int32)
+        pid = torch.where(pid >= 0, pid + pidx_offset, -1)
         pid = pid[:, None].expand(n, rt, -1)
         if stage == 3:      # the last candidate cell's hits, in lane order
             last = (nb[a0:a1].long() - 1).clamp(min=0)[:, None, None, None]
@@ -134,23 +151,29 @@ def _check(name, t, dtype, shape, device):
             f'(contiguous={t.is_contiguous()})')
 
 
-def _smem_bytes(rt, cw, kbuf, with_exit):
-    return 4 * (4 * cw + rt * kbuf * (3 if with_exit else 2))
+def _smem_bytes(kbuf, with_exit):
+    """Dynamic shared memory of a launch (``warp_bytes`` of the source, per
+    warp): the staged unit and its padding as float4, or the sort's kbuf
+    entries, whichever is larger, in 16-byte steps."""
+    unit = (_UNIT + _UNROLL) * 16
+    sort = kbuf * 4 * (3 if with_exit else 2)
+    return _THREADS // 32 * ((max(unit, sort) + 15) // 16 * 16)
 
 
 def _lib():
+    """The built ``csrc/spc_trace.cu``, its C function typed."""
     from kaolin_tpu_torch import _cuda
     lib = _cuda.load('spc_trace')
     if lib.spc_trace.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.spc_trace.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f,
-                                  i, i, p]
+                                  i, i, i, p]
         lib.spc_trace.restype = ctypes.c_int
     return lib
 
 
 def _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-            with_exit, out, stage=6, counter='trace'):
+            with_exit, out, stage=6, counter='trace', pidx_offset=0):
     """Launch K3 (``stage`` 6) or its cut at ``stage`` into preallocated
     outputs ``out`` = (t_near, t_far, pidx, count), as :func:`_outputs`
     makes them, and add one to ``LAUNCHES[counter]``; rows of blocks not in
@@ -170,21 +193,22 @@ def _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
                               (torch.float32, torch.float32, torch.int32)):
         _check(name, t, dtype, (nB, rt, kbuf), device)
     _check('count', out[3], torch.int32, (nB, rt), device)
-    smem = _smem_bytes(rt, cw, kbuf, with_exit)
-    if not 1 <= rt <= _MAX_RT or smem > _MAX_SMEM:
-        raise ValueError(
-            f'spc_trace_kernel takes 1 <= rays_per_tile <= {_MAX_RT} and '
-            f'at most {_MAX_SMEM} B of k-buffer and cell row in shared '
-            f'memory; got rays_per_tile={rt}, kbuf={kbuf}, cell width {cw} '
-            f'({smem} B)')
     if stage not in STAGES:
         raise ValueError(f'stage must be one of {STAGES}, got {stage}')
+    smem = _smem_bytes(kbuf, with_exit)
+    if not 1 <= rt <= _MAX_RT or not 1 <= kbuf or smem > _MAX_SMEM:
+        raise ValueError(
+            f'spc_trace_kernel (one ray per lane, {_THREADS // 32} blocks '
+            f'per CTA) takes 1 <= rays_per_tile <= {_MAX_RT} and at most '
+            f'{_MAX_SMEM} B of shared memory (per warp a staged unit or a '
+            f'sort buffer of kbuf entries); got rays_per_tile={rt}, '
+            f'kbuf={kbuf} ({smem} B)')
     if nA == 0:
         return out
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in (
         rays, cell_rows, block_cells, nb, block_ids, *out)]
     args = [*ptr, nA, rt, cw, ckmax, kbuf, float(2. * half),
-            int(bool(with_exit))]
+            int(bool(with_exit)), int(pidx_offset)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
     rc = _lib().spc_trace(*args, int(stage), stream)
     if rc != 0:
@@ -194,22 +218,23 @@ def _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
 
 
 def _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-                with_exit, num_blocks, stage=6, counter='trace'):
+                with_exit, num_blocks, pidx_offset=0, stage=6,
+                counter='trace'):
     """Allocate the outputs and launch K3 (or its cut at ``stage``); same
     contract as the plain version."""
     out = _outputs(num_blocks, rays.shape[1], kbuf, rays.device)
     return _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-                   with_exit, out, stage, counter)
+                   with_exit, out, stage, counter, pidx_offset)
 
 
 def trace(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-          with_exit, num_blocks):
+          with_exit, num_blocks, pidx_offset=0):
     """K3: trace the active blocks' rays against their candidate cells.
 
     Args:
         rays: (nA, rt, 6) f32 per active block: origin, then 1 / direction.
         cell_rows: (Mc + 1, 4, cw) int32 cell table rows (x, y, z, local
-            leaf index; -1 pads).
+            leaf index; -1, in any slot, for no voxel).
         block_cells: (nA, ckmax) int32 candidate cell ids per block, in
             candidate order.
         nb: (nA,) int32 candidate cells to read per block (<= ckmax).
@@ -217,22 +242,25 @@ def trace(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
         kbuf: k-buffer width.  half: voxel half side, 1 / 2**level.
         with_exit: also write exit depths.
         num_blocks: number of output rows nB.
+        pidx_offset: added to the leaf index of every kept hit (the leaf
+            level's offset in the point hierarchy gives global indices).
 
     Returns:
         (t_near (nB, rt, kbuf) f32, t_far (nB, rt, kbuf) f32, pidx (nB, rt,
-        kbuf) int32 local leaf indices, count (nB, rt) int32).
+        kbuf) int32 leaf indices + ``pidx_offset``, -1 for padding, count
+        (nB, rt) int32).
     """
     if rays.device.type == 'cpu':
         return _trace_torch(rays, cell_rows, block_cells, nb, block_ids,
-                            kbuf, half, with_exit, num_blocks)
+                            kbuf, half, with_exit, num_blocks, pidx_offset)
     if rays.device.type != 'cuda':
         raise ValueError(f'no spc trace for device {rays.device}')
     return _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf,
-                       half, with_exit, num_blocks)
+                       half, with_exit, num_blocks, pidx_offset)
 
 
 def trace_staged(stage, rays, cell_rows, block_cells, nb, block_ids, kbuf,
-                 half, with_exit, num_blocks):
+                 half, with_exit, num_blocks, pidx_offset=0):
     """K3 cut at ``stage``, for measuring its parts (arguments as
     :func:`trace`).
 
@@ -257,9 +285,9 @@ def trace_staged(stage, rays, cell_rows, block_cells, nb, block_ids, kbuf,
             raise ValueError(f'stage must be one of {STAGES}, got {stage}')
         return _trace_staged_torch(stage, rays, cell_rows, block_cells, nb,
                                    block_ids, kbuf, half, with_exit,
-                                   num_blocks)
+                                   num_blocks, pidx_offset)
     if rays.device.type != 'cuda':
         raise ValueError(f'no spc trace for device {rays.device}')
     return _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf,
-                       half, with_exit, num_blocks, stage=stage,
+                       half, with_exit, num_blocks, pidx_offset, stage=stage,
                        counter=f'stage{stage}')

@@ -410,6 +410,26 @@ def trace_inputs(cell_table, origin, direction, rays_per_tile=16, knum=64,
                 half=1.0 / (1 << cell_table.level), num_blocks=nB), sat
 
 
+def _trace_cells(cell_table, origin, direction, rays_per_tile, knum,
+                 segments, max_super_voxels, max_active_blocks, with_exit,
+                 pidx_offset):
+    """The ``'mosaic'`` engine on rays in block order: the culling, K3 and
+    the cut to the rays given and to ``knum`` entries.  Arguments as in
+    :func:`unbatched_raytrace_coherent`; ``pidx_offset`` as in
+    :func:`._trace.trace`.  Returns (t_near, t_far, pidx (N, knum), count
+    (N,), saturated)."""
+    N = origin.shape[0]
+    args, sat = trace_inputs(cell_table, origin, direction, rays_per_tile,
+                             knum, segments, max_super_voxels,
+                             max_active_blocks)
+    tns, tfs, pis, cnt = _trace.trace(with_exit=bool(with_exit),
+                                      pidx_offset=pidx_offset, **args)
+    tns, tfs, pis = (x.reshape(-1, args['kbuf'])[:N, :knum]
+                     for x in (tns, tfs, pis))
+    cnt = cnt.reshape(-1)[:N]
+    return tns, tfs, pis, cnt, sat | (cnt > knum).any()
+
+
 def _block_order(height, width, bh, bw):
     """Row-major order of pixels grouped into (bh, bw) blocks; returns
     (perm, inv_perm) host numpy index arrays of length height*width."""
@@ -496,15 +516,10 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
             cell_table = build_cell_table(
                 torch.as_tensor(point_hierarchy, device=device), pyramid,
                 level)
-        args, sat = trace_inputs(cell_table, origin, direction, RT, knum,
-                                 segments, max_super_voxels,
-                                 max_active_blocks)
-        tns, tfs, pis, cnt = _trace.trace(with_exit=bool(with_exit), **args)
-        kbuf = args['kbuf']
-        tns, tfs, pis = (x.reshape(-1, kbuf)[:N, :knum]
-                         for x in (tns, tfs, pis))
-        cnt = cnt.reshape(-1)[:N]
-        sat = sat | (cnt > knum).any()
+        # K3 writes the final pidx: the leaf index + the level's offset
+        tns, tfs, pis, cnt, sat = _trace_cells(
+            cell_table, origin, direction, RT, knum, segments,
+            max_super_voxels, max_active_blocks, with_exit, pidx_offset=off)
     else:
         origin, direction = _pad_rays(origin, direction, RT)
         nB = origin.shape[0] // RT
@@ -523,10 +538,10 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
             leaf, origin, direction, int(level), RT, CK, CS, int(knum),
             min(int(block_group), nB))
         tns, tfs, pis, cnt = tns[:N], tfs[:N], pis[:N], cnt[:N]
+        pis = torch.where(pis >= 0, pis + off, -1)
     if inv is not None:
         iv = torch.as_tensor(inv, device=device)
         tns, tfs, pis, cnt = tns[iv], tfs[iv], pis[iv], cnt[iv]
-    pis = torch.where(pis >= 0, pis + off, -1)
     return CoherentHits(tns, tfs, pis, cnt, sat)
 
 

@@ -9,7 +9,7 @@ from typing import NamedTuple
 import numpy as np
 
 __all__ = ['UVSphere', 'uv_sphere', 'random_triangles', 'camera_grid',
-           'EDGE_SCENES', 'dibr_edge_scene']
+           'EDGE_SCENES', 'dibr_edge_scene', 'punch_cell_rows']
 
 
 def random_triangles(seed, F, B=2, spread=0.3):
@@ -142,3 +142,26 @@ def camera_grid(side, z=-2.5, spread=0.1, extent=0.9):
                   np.ones(side * side)], -1)
     d = d / np.linalg.norm(d, axis=-1, keepdims=True)
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def punch_cell_rows(rows, seed, share=0.25):
+    """A copy of cell-table rows (R, 4, cw) int32 with voxels taken out and
+    put in, for the trace kernel's tests.  In every third row a random
+    ``share`` of the slots loses its voxel (leaf index -1, holes anywhere in
+    the row; the coordinates stay in place); every seventh row loses all of
+    them; in every fifth row that holds a voxel each free slot gets a copy
+    of the row's first voxel under a leaf index of its own (R * cw + its
+    place), so the row is full and a ray that hits the voxel hits it again
+    at an equal depth.  The other rows stay as they are."""
+    rng = np.random.default_rng(seed)
+    rows = np.array(rows, copy=True)
+    R, _, cw = rows.shape
+    idx = np.arange(R)
+    fill = (idx % 5 == 2)[:, None] & (rows[:, 3, :1] >= 0) & (rows[:, 3] < 0)
+    filled = np.where(fill[:, None], rows[:, :, :1], rows)
+    filled[:, 3] = np.where(fill, R * cw + np.arange(R * cw).reshape(R, cw),
+                            rows[:, 3])
+    holes = (rng.random((R, cw)) < share) & (idx % 3 == 1)[:, None]
+    holes |= (idx % 7 == 3)[:, None]
+    filled[:, 3][holes] = -1
+    return filled

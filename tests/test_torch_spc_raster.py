@@ -2,7 +2,8 @@
 
 * the cell table: exactly equal;
 * the port's ``'mosaic'`` engine (K3's plain version on the CPU) against the
-  JAX ``'mosaic'`` engine in interpret mode on one scene (one call, 12 s);
+  JAX ``'mosaic'`` engine in interpret mode on one scene (one call, 12 s)
+  and on a table whose rows hold -1 anywhere (one more call);
 * against the JAX ``'xla'`` engine (compiled) on random octrees, including
   a dense one whose rays hit more than 64 voxels, saturated and not;
 * the port's ``'xla'`` engine against JAX's;
@@ -14,6 +15,7 @@ Tolerance: exact (t_near, t_far, pidx, count and the saturation flag): both
 packages evaluate the slab test with the same float32 operations, and a
 comparison of the results found no rounding difference.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -109,6 +111,86 @@ def test_mosaic_vs_jax_mosaic_interpret(interpret_scene):
     assert int(ht.count.sum()) > 0 and (ht.count == 0).any()
     assert not bool(ht.saturated)
     assert_hits_equal(hj, ht)
+
+
+def test_mosaic_vs_jax_mosaic_interpret_punched_rows():
+    """Cell rows with -1 anywhere (holes in the middle, emptied rows) beside
+    a row that is live to its last slot: the port's engine against the JAX
+    kernel in interpret mode on the same table.  No two voxels of a row are
+    equal here: among equal depths the JAX kernel's bitonic sort keeps no
+    order, so tied hits are held against the plain version's stable order
+    in ``test_torch_spc_kernels.py`` only."""
+    level = 4
+    rng = np.random.default_rng(15)
+    cell = np.stack(np.meshgrid(*[np.arange(4, 8)] * 3, indexing='ij'),
+                    -1).reshape(-1, 3)              # one cell, all 64 voxels
+    j, t = build_both(np.concatenate(
+        [rng.integers(0, 2 ** level, size=(1200, 3)), cell]), level)
+    tj = JRa.build_cell_table(j[3], j[1], level, cell_shift=2, cell_width=64)
+    tt = TRa.build_cell_table(t[3], t[1], level, cell_shift=2, cell_width=64)
+    rows = tt.rows.numpy().copy()
+    R, _, cw = rows.shape
+    idx = np.arange(R)
+    full = (rows[:, 3] >= 0).all(1)
+    holes = (rng.random((R, cw)) < 0.25) & (idx % 3 == 1)[:, None]
+    holes |= (idx % 7 == 3)[:, None]
+    rows[:, 3][holes & ~full[:, None]] = -1
+    live = rows[:-1, 3] >= 0
+    last = (live * np.arange(1, cw + 1)).max(1)
+    assert (live.sum(1) < last).any() and live.all(1).any()
+    assert (~live.any(1) & (tt.rows[:-1, 3] >= 0).any(1).numpy()).any()
+    tables = (tj._replace(rows=jnp.asarray(rows)),
+              tt._replace(rows=torch.as_tensor(rows)))
+    o, d = camera_grid(16)
+    hj, ht = _trace_both(j, t, o, d, level, rays_per_tile=16,
+                         engine='mosaic', cell_table=tables,
+                         segments=((None, 64),), knum=64, with_exit=True)
+    assert int(ht.count.sum()) > 0 and not bool(ht.saturated)
+    assert_hits_equal(hj, ht)
+    # voxels of the full row are among the hits, and punched ones are not
+    hit = set(ht.pidx[ht.pidx >= 0].tolist())
+    gone = set((tt.rows[:, 3].numpy()[holes & ~full[:, None]]
+                + tt.offset).tolist()) - {tt.offset - 1}
+    assert hit & set((rows[full, 3] + tt.offset).ravel().tolist())
+    assert gone and not hit & gone
+
+
+@pytest.mark.parametrize('grid_shape', [None, (24, 24)])
+def test_mosaic_engine_gives_k3_the_level_offset(monkeypatch, grid_shape):
+    """The ``'mosaic'`` engine hands the leaf level's offset to K3, which
+    writes the final pidx: the hits equal K3's offset-0 result moved by a
+    ``where`` pass, and every live pidx lies in the leaf level."""
+    level = 4
+    _, t = random_scene(level, 300, 16)
+    o, d = camera_grid(24)
+    off, V = int(t[1][1, level]), int(t[1][0, level])
+    seen = []
+    k3 = TRa._trace.trace
+
+    def spy(**kw):
+        seen.append(kw['pidx_offset'])
+        return k3(**kw)
+
+    def run():
+        return TRa.unbatched_raytrace_coherent(
+            t[0], t[3], t[1], t[2], torch.as_tensor(o), torch.as_tensor(d),
+            level, rays_per_tile=16, engine='mosaic', device='cpu',
+            grid_shape=grid_shape)
+
+    monkeypatch.setattr(TRa._trace, 'trace', spy)
+    hits = run()
+    monkeypatch.setattr(TRa._trace, 'trace',
+                        lambda **kw: k3(**dict(kw, pidx_offset=0)))
+    base = run()
+    assert seen == [off] and off > 0
+    live = hits.pidx >= 0
+    assert int(live.sum()) == int(hits.count.sum()) > 0
+    assert bool(((hits.pidx[live] >= off) & (hits.pidx[live] < off + V)).all())
+    assert torch.equal(hits.pidx,
+                       torch.where(base.pidx >= 0, base.pidx + off, -1))
+    for a, b in zip(hits, base):
+        if a is not hits.pidx:
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('trim', [True, False])
