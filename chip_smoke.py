@@ -16,8 +16,10 @@ SH-lit render -> image L1 + mask IoU loss -> backward -> Adam) at 512^2,
    both kernels cull to (K1's evaluated (pixel, face) pairs beside those of
    one CTA per tile walking whole chunks, its face lists per sub-tile, K2's
    sub-tiles with a non-zero g*prod), counted in torch from their rules;
-4. 5 Adam steps; step 0's loss and gradients against the plain path (the
-   same step on the CPU, where the wrappers run the plain versions);
+4. 5 Adam steps; then step 0's loss and gradients at 128^2 and one view
+   on the card against the same step on the CPU, where the wrappers run
+   the plain versions (phases 2-3 hold the kernels against their plain
+   versions at full size);
 5. times (CUDA events after warm-up) of the step and of each kernel
    beside its plain version; the step on the card's timeline
    (``torch.profiler``): kernels per step, device busy and idle share, the
@@ -64,6 +66,28 @@ its kernels' launch counts set to 0 just before and read just after:
     8's dense level-6 octree; at the SPC cell every stage against plain
     and stage 6 equal to K3 bit for bit; each stage's time and its delta.
 
+BASELINE config #1 (one OBJ, DIB-R at 256^2, backprop to the vertices)
+and config #4 (DefTet sparse render + tetmesh losses), plain PyTorch (the
+JAX package computes both without a Pallas kernel):
+
+14. the sphere written as OBJ + MTL text, read by ``import_mesh`` onto the
+    card (vertices, faces and face uvs equal to the generator's); the
+    brute-force ``'jnp'`` selection against K1's (equal but at z ties);
+    5 Adam steps of the trainer with ``backend='jnp'`` at 256^2, 4 views, a
+    256^2 texture, knum 30 (the loss falls, no K1/K2 launch); step 0 at
+    128^2, one view, against the CPU; times of the step, the z-buffer and
+    k-buffer selections, the soft-mask epilogue forward and backward, and
+    the step on the card's timeline;
+15. ``bench.py::_phase_deftet``'s cell: 256^2, knum 30, one view, normals
+    as features, the binned engine (max_candidates 2048, pixel_chunk
+    1024) against the default engine on the card and against the CPU at
+    64^2 (face_idx, features, gradients); fwd + bwd times of both;
+16. a 32^3 tet grid of a cube (6 tets per cell) with a sphere's SDF:
+    ``marching_tetrahedra``, one ``subdivide_tetmesh``, ``equivolume`` and
+    ``amips`` with gradients, each on the card against the CPU; times.
+
+Each phase prints its seconds, and the script its total.
+
 Every kernel of the ``kernels`` line carries its time, its plain
 version's, its bound (the larger of bytes over 3.35 TB/s and float32
 operations over 67 TFLOP/s, counted on this run's inputs) and, where one
@@ -77,6 +101,7 @@ it lists the kernels.
 
 import json
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -84,7 +109,12 @@ import numpy as np
 import torch
 
 from kaolin_tpu_torch import _cuda
+from kaolin_tpu_torch.io.obj import import_mesh
+from kaolin_tpu_torch.metrics import tetmesh as met_tet
 from kaolin_tpu_torch.models import inverse_render as M
+from kaolin_tpu_torch.ops.conversions.tetmesh import marching_tetrahedra
+from kaolin_tpu_torch.ops.mesh.tetmesh import (inverse_vertices_offset,
+                                               subdivide_tetmesh)
 from kaolin_tpu_torch.probes import _kernels as PK
 from kaolin_tpu_torch.probes import kbisect, mosaic3, stages
 from kaolin_tpu_torch.ops.conversions.trianglemesh import (
@@ -92,6 +122,10 @@ from kaolin_tpu_torch.ops.conversions.trianglemesh import (
 from kaolin_tpu_torch.ops.spc import (generate_points, scan_octrees,
                                       unbatched_points_to_octree)
 from kaolin_tpu_torch.render.mesh import _fused as FU
+from kaolin_tpu_torch.render.mesh import (deftet_sparse_render,
+                                          dibr_soft_mask,
+                                          dibr_soft_mask_select,
+                                          rasterize_selection)
 from kaolin_tpu_torch.render.spc import (
     _trace, exponential_integration, hits_to_nuggets, mark_pack_boundaries,
     unbatched_raytrace)
@@ -100,7 +134,8 @@ from kaolin_tpu_torch.render.spc.raster import (
 from kaolin_tpu_torch.utils import measure
 from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
 from kaolin_tpu_torch.utils.testing import (camera_grid, punch_cell_rows,
-                                            uv_sphere)
+                                            tet_grid, uv_sphere,
+                                            write_sphere_obj)
 
 HEIGHT = WIDTH = 512
 VIEWS = 4
@@ -123,6 +158,28 @@ K2_REL_MAX = 1e-3           # max |grad diff| / max |grad|
 # index/grid_sample backward's atomic sums
 STEP0_LOSS_RTOL = 1e-4
 STEP0_GRAD_REL = 1e-3
+
+KNUM = 30                   # soft-mask k-buffer depth ('jnp' backend)
+# step 0 against the plain path on the CPU runs at this reduced size (the
+# kernels are held against their plain versions at full size on the card)
+STEP0_SIZE = dict(height=128, views=1)
+
+# BASELINE config #1 (OBJ -> DIB-R 256^2 -> vertex gradients, 'jnp')
+CFG1 = dict(height=256, views=4, texture_res=256, backend='jnp', knum=KNUM)
+JNP_FID_MISMATCH_MAX = 1e-4  # share of pixels where 'jnp' and K1 differ
+Z_TIE_REL = 1e-5            # ... each a z tie: both cover, z equal to this
+# BASELINE config #4 (DefTet, as bench.py::_phase_deftet runs it)
+DEFTET = dict(height=256, knum=30, max_candidates=2048, pixel_chunk=1024,
+              check_height=64)
+DEFTET_FEAT_ATOL = 1e-5
+DEFTET_GRAD_REL = 1e-4
+DEFTET_ZERO_GRAD = 1e-6     # a gradient that is 0 but for rounding (z)
+# tetmesh ops and losses
+TET_GRID = 32               # 32^3 cells x 6 tets
+SDF_RADIUS = 0.6
+MT_VERT_ATOL = 1e-6
+TET_LOSS_RTOL = 1e-5
+TET_GRAD_REL = 1e-4
 
 # SPC pipeline (BASELINE config #3, as bench.py::_phase_spc runs it)
 SPC_RADIUS = 0.45           # the sphere scaled to ~fox's 992k level-10 voxels
@@ -196,30 +253,36 @@ def toolchain(card):
 
 
 def make_scene(dev, height=HEIGHT, views=VIEWS, texture_res=TEXTURE_RES,
-               sphere=SPHERE):
-    """The trainer's inputs: targets from the unperturbed sphere with a
-    numpy-seeded texture; the start point perturbed by 0.05 N(0, 1)."""
-
-    s = uv_sphere(*sphere)
-    faces = torch.as_tensor(s.faces, device=dev)
-    face_uvs = torch.as_tensor(s.uvs[s.face_uvs_idx], device=dev)
+               sphere=SPHERE, backend='fused', knum=KNUM, mesh=None):
+    """The trainer's inputs: targets from the unperturbed mesh (``mesh``, an
+    imported SurfaceMesh, else ``uv_sphere(*sphere)``) with a numpy-seeded
+    texture; the start point perturbed by 0.05 N(0, 1)."""
+    if mesh is None:
+        s = uv_sphere(*sphere)
+        faces = torch.as_tensor(s.faces, device=dev)
+        face_uvs = torch.as_tensor(s.uvs[s.face_uvs_idx], device=dev)
+        mesh = s
+    else:
+        faces, face_uvs = mesh.faces.to(dev), mesh.face_uvs.to(dev)
     cams = M.make_views(views, device=dev)
-    params = M.init_params(s, texture_res, device=dev)
+    params = M.init_params(mesh, texture_res, device=dev)
     tex = np.random.default_rng(7).random(
         (3, texture_res, texture_res), dtype=np.float32)
     gt = M.from_jax_params(params.vertices.detach().cpu().numpy(), tex,
                            params.sh_coeffs.detach().cpu().numpy(),
                            device=dev)
     with torch.no_grad():
-        sel = M.compute_selection(gt, cams, faces, height, height)
+        sel = M.compute_selection(gt, cams, faces, height, height,
+                                  backend=backend, knum=knum)
         target_images, target_masks, _ = M.render_views(
-            gt, cams, faces, face_uvs, height, height, selection=sel)
+            gt, cams, faces, face_uvs, height, height, backend=backend,
+            selection=sel, knum=knum)
         noise = np.random.default_rng(0).standard_normal(
             tuple(params.vertices.shape)).astype(np.float32)
         params.vertices += 0.05 * torch.as_tensor(noise, device=dev)
     return dict(faces=faces, face_uvs=face_uvs, views=cams, params=params,
                 target_images=target_images, target_masks=target_masks,
-                height=height)
+                height=height, backend=backend, knum=knum)
 
 
 def kernel_inputs(scene):
@@ -327,20 +390,27 @@ def culling(scene, inputs, g_prod):
 def _step(scene, params, selection=None):
     """compute_selection -> render_loss -> backward; returns the loss."""
     H = scene['height']
-    sel = M.compute_selection(params, scene['views'], scene['faces'], H, H)
+    kw = dict(backend=scene['backend'], knum=scene['knum'])
+    sel = M.compute_selection(params, scene['views'], scene['faces'], H, H,
+                              **kw)
     for p in params.parameters():
         p.grad = None
     loss = M.render_loss(params, scene['views'], scene['faces'],
                          scene['face_uvs'], scene['target_images'],
                          scene['target_masks'], H, H,
-                         selection=sel if selection is None else selection)
+                         selection=sel if selection is None else selection,
+                         **kw)
     loss.backward()
     return loss, sel
 
 
-def check_step_against_plain(scene, params, loss, sel):
-    """The same step on the CPU, where the wrappers run the plain
-    versions: loss and gradients of the kernel path must match it."""
+def check_step_against_plain(scene):
+    """Step 0 of ``scene`` (a reduced size) on the card and on the CPU,
+    where the wrappers run the plain versions: loss and gradients of the
+    kernel path must match the plain path's."""
+    params = scene['params']
+    loss, sel = _step(scene, params)
+    torch.cuda.synchronize()
     cpu = {k: (v.detach().cpu() if torch.is_tensor(v) else v)
            for k, v in scene.items()}
     cpu['views'] = M.CameraViews(*(v.cpu() for v in scene['views']))
@@ -350,13 +420,14 @@ def check_step_against_plain(scene, params, loss, sel):
     t0 = time.perf_counter()
     loss_c, sel_c = _step(cpu, p_cpu)
     cpu_s = time.perf_counter() - t0
+    H, B = scene['height'], scene['views'].camera_rot.shape[0]
     mism = (sel[0].cpu() != sel_c[0]).float().mean().item()
     rel_loss = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
-    print(f'step 0, kernel path (card) vs plain path (CPU, {cpu_s:.1f} s): '
-          f'loss {loss.item():.7f} vs {loss_c.item():.7f} (rel '
-          f'{rel_loss:.2e}, limit {STEP0_LOSS_RTOL:g}); face_idx mismatch '
-          f'share {mism:.2e}')
-    _check(rel_loss <= STEP0_LOSS_RTOL, 'step-0 loss kernel vs plain')
+    print(f'step 0 ({scene["backend"]}, {B} view(s), {H}x{H}), card vs '
+          f'plain path on the CPU ({cpu_s:.2f} s on the CPU): loss '
+          f'{loss.item():.7f} vs {loss_c.item():.7f} (rel {rel_loss:.2e}, '
+          f'limit {STEP0_LOSS_RTOL:g}); face_idx mismatch share {mism:.2e}')
+    _check(rel_loss <= STEP0_LOSS_RTOL, 'step-0 loss card vs plain')
     for name in ('vertices', 'texture_map', 'sh_coeffs'):
         g = getattr(params, name).grad.cpu()
         g_c = getattr(p_cpu, name).grad
@@ -366,11 +437,13 @@ def check_step_against_plain(scene, params, loss, sel):
               f'ratio {err / max(scale, 1e-30):.2e} '
               f'(limit {STEP0_GRAD_REL:g})')
         _check(scale > 0 and err <= STEP0_GRAD_REL * scale,
-               f'step-0 grad {name} kernel vs plain')
+               f'step-0 grad {name} card vs plain')
+    return cpu_s
 
 
 def train(scene, steps=STEPS):
-    """Phase 4: the trainer.  Returns the kernels' launch counts."""
+    """The trainer: ``steps`` Adam steps.  Returns (the kernels' launch
+    counts, the losses)."""
     params = scene['params']
     opt = torch.optim.Adam(params.parameters(), lr=LR)
     start = {n: p.detach().clone() for n, p in params.named_parameters()}
@@ -382,21 +455,20 @@ def train(scene, steps=STEPS):
         loss, sel = _step(scene, params)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if step == 0:
-            check_step_against_plain(scene, params, loss, sel)
+        _check(params.vertices.grad.abs().max().item() > 0,
+               'vertex gradient non-zero')
         opt.step()
         losses.append(loss.item())
-        print(f'step {step}: loss {losses[-1]:.7f} ({dt * 1e3:.1f} ms host '
-              f'clock, first step includes warm-up)')
+        print(f'step {step} ({scene["backend"]}): loss {losses[-1]:.7f} '
+              f'({dt * 1e3:.1f} ms host clock, first step includes '
+              f'warm-up)')
     launches = dict(FU.LAUNCHES)
     print(f'kernel launches during the {steps} steps: {launches}')
     _check(all(np.isfinite(losses)), 'losses finite')
     for n, p in params.named_parameters():
         _check(torch.isfinite(p).all().item(), f'{n} finite')
         _check(not torch.equal(p.detach(), start[n]), f'{n} moved')
-    _check(launches['fwd'] >= steps and launches['bwd'] >= steps,
-           'both kernels launched on every step')
-    return launches
+    return launches, losses
 
 
 def step_profile(scene, card, steps=3, top=8):
@@ -966,6 +1038,330 @@ def probe_p3(args, dense_args, card):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config #1: OBJ import -> k-buffer ('jnp') DIB-R at 256^2
+
+def _z_ties(scene, fid_a, fid_b, eps=Z_TIE_REL):
+    """For the pixels where the two selections differ: whether both faces
+    cover the pixel (normalized barycentrics >= -eps, in float64) and their
+    interpolated z agree within eps relative (a z tie on a shared edge)."""
+    H = scene['height']
+    with torch.no_grad():
+        fvc, fvi, _ = M._prepare(scene['params'], scene['views'],
+                                 scene['faces'])
+    b, i, j = torch.nonzero(fid_a != fid_b, as_tuple=True)
+    if b.numel() == 0:
+        return 0, True
+    xs = (MULT / H) * (2 * j.double() + 1 - H)
+    ys = (MULT / H) * (H - 2 * i.double() - 1)
+    zs = []
+    for fid in (fid_a, fid_b):
+        f = fid[b, i, j].long()
+        v = fvi[b, f].double() * MULT                       # (N, 3, 2)
+        e = v - torch.stack([xs, ys], -1)[:, None]
+        w = torch.stack([e[:, 1, 0] * e[:, 2, 1] - e[:, 1, 1] * e[:, 2, 0],
+                         e[:, 2, 0] * e[:, 0, 1] - e[:, 2, 1] * e[:, 0, 0],
+                         e[:, 0, 0] * e[:, 1, 1] - e[:, 0, 1] * e[:, 1, 0]],
+                        -1)
+        w = w / w.sum(-1, keepdim=True)
+        covers = (f >= 0) & (w >= -eps).all(-1)
+        zs.append((covers, (w * fvc[b, f, :, 2].double()).sum(-1)))
+    (ca, za), (cb, zb) = zs
+    tie = ca & cb & ((za - zb).abs() <= eps * torch.maximum(
+        za.abs(), zb.abs()))
+    return b.numel(), bool(tie.all())
+
+
+def config1(dev, card):
+    """Phase 14: BASELINE config #1 on the card: the sphere written as OBJ
+    + MTL, imported, trained with backend='jnp' (the brute-force z-buffer
+    and the k-buffer soft mask) at 256^2; its selection against K1's; step
+    0 against the CPU; times."""
+    s = uv_sphere(*SPHERE)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = import_mesh(write_sphere_obj(tmp, s), with_materials=True,
+                           device=dev)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    fu = torch.as_tensor(s.uvs[s.face_uvs_idx])
+    same = (mesh.vertices.device.type == torch.device(dev).type
+            and torch.equal(mesh.vertices.cpu(), torch.as_tensor(s.vertices))
+            and torch.equal(mesh.faces.cpu(), torch.as_tensor(s.faces))
+            and torch.equal(mesh.face_uvs.cpu(), fu))
+    print(f'import_mesh (OBJ + MTL text of uv_sphere{SPHERE}, '
+          f'with_materials=True, on the card): {mesh.vertices.shape[0]} '
+          f'vertices, {mesh.faces.shape[0]} faces, {len(mesh.materials)} '
+          f'material; vertices, faces and face uvs equal to the '
+          f"generator's: {same}; {import_ms:.1f} ms host clock")
+    _check(same, 'imported mesh equals the generator')
+    _check(len(mesh.materials) == 1
+           and bool((mesh.material_assignments == 0).all()),
+           'one material on every face')
+
+    scene = make_scene(dev, mesh=mesh, **CFG1)
+    H, B = scene['height'], CFG1['views']
+    fid_j, kbuf = M.compute_selection(scene['params'], scene['views'],
+                                      scene['faces'], H, H, backend='jnp',
+                                      knum=CFG1['knum'])
+    fid_f, _ = M.compute_selection(scene['params'], scene['views'],
+                                   scene['faces'], H, H, backend='fused')
+    n_diff, ties = _z_ties(scene, fid_j, fid_f)
+    share = n_diff / fid_j.numel()
+    print(f"'jnp' face_idx vs K1's at {H}^2, {B} views: {n_diff} of "
+          f'{fid_j.numel()} pixels differ (share {share:.2e}, limit '
+          f'{JNP_FID_MISMATCH_MAX:g}), all at z ties (both faces cover the '
+          f'pixel, z within {Z_TIE_REL:g} relative): {ties}; k-buffer '
+          f'slots filled {(kbuf >= 0).float().mean().item():.4f}')
+    _check(share <= JNP_FID_MISMATCH_MAX and ties,
+           "'jnp' selection equals K1's but at z ties")
+
+    launches, losses = train(scene)
+    _check(sum(launches.values()) == 0, "the 'jnp' path runs no kernel")
+    _check(losses[-1] < losses[0], 'the loss falls')
+    cpu_s = check_step_against_plain(make_scene(
+        dev, mesh=mesh, **dict(CFG1, **STEP0_SIZE)))
+
+    params = scene['params']
+    step_ms = time_ms(lambda: _step(scene, params), 3)
+    with torch.no_grad():
+        fvc, fvi, fn = M._prepare(params, scene['views'], scene['faces'])
+    valid = fn[..., 2] >= 0.
+    zsel_ms = time_ms(lambda: rasterize_selection(
+        H, H, fvc[..., 2], fvi, valid, backend='jnp'), 3)
+    face_idx = rasterize_selection(H, H, fvc[..., 2], fvi, valid,
+                                   backend='jnp')
+    ksel_ms = time_ms(lambda: dibr_soft_mask_select(
+        fvi, face_idx, knum=CFG1['knum']), 3)
+    kb = dibr_soft_mask_select(fvi, face_idx, knum=CFG1['knum'])
+    g = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        tuple(face_idx.shape)).astype(np.float32), device=dev)
+
+    def epilogue(backward):
+        f = fvi.detach().requires_grad_(backward)
+        m = dibr_soft_mask(f, face_idx, knum=CFG1['knum'], kbuf=kb)
+        if backward:
+            m.backward(g)
+
+    fwd_ms = time_ms(lambda: epilogue(False), 5)
+    fwdbwd_ms = time_ms(lambda: epilogue(True), 5)
+    print(f'[{card}] config #1 step (\'jnp\': selection + render_loss + '
+          f'backward, {B} views, {H}x{H}, {scene["faces"].shape[0]} faces, '
+          f'knum {CFG1["knum"]}): {step_ms:.3f} ms = '
+          f'{B * H * H / step_ms / 1e3:.3f} Mpix/s')
+    print(f'[{card}] config #1 z-buffer selection (_selection_jnp) '
+          f'{zsel_ms:.3f} ms; k-buffer selection (dibr_soft_mask_select) '
+          f'{ksel_ms:.3f} ms; soft-mask epilogue forward {fwd_ms:.3f} ms, '
+          f'forward + backward {fwdbwd_ms:.3f} ms, so backward '
+          f'{fwdbwd_ms - fwd_ms:.3f} ms')
+    step_profile(scene, card)
+    return dict(step_ms=step_ms, cpu_s=cpu_s)
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config #4: DefTet sparse render at 256^2
+
+def deftet_cell(dev, height):
+    """bench.py::_phase_deftet's inputs: one view of the sphere through the
+    trainer's _prepare; pixel coords on a linspace grid; range (-1e4, 0);
+    face normals as features (plus, for the gradient checks, the corners'
+    camera-space positions, which vary over a face)."""
+    s = uv_sphere(*SPHERE)
+    params = M.init_params(s, texture_res=16, device=dev)
+    views = M.make_views(1, device=dev)
+    with torch.no_grad():
+        fvc, fvi, fn = M._prepare(params, views,
+                                  torch.as_tensor(s.faces, device=dev))
+    lin = torch.linspace(-1., 1., height, device=dev)
+    ys, xs = torch.meshgrid(lin, lin, indexing='ij')
+    P = height * height
+    pc = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)[None]
+    rr = torch.tensor([[-1e4, 0.]], device=dev).expand(P, 2)[None]
+    normals = fn[:, :, None, :].expand(tuple(fn.shape[:2]) + (3, 3))
+    return dict(pc=pc, rr=rr, fvz=fvc[..., 2].contiguous(), fvi=fvi,
+                normals=normals.contiguous(), corners=fvc.contiguous())
+
+
+def _deftet_run(cell, engine, ct=None):
+    """fwd + bwd on ``cell`` with features [normals, corners] and the
+    cotangents ``ct`` (numpy-seeded when None); returns (feats, face_idx,
+    grads w.r.t. fvi, fvz, normals, corners)."""
+    leaves = [cell[k].detach().clone().requires_grad_()
+              for k in ('fvi', 'fvz', 'normals', 'corners')]
+    feats, idx = deftet_sparse_render(cell['pc'], cell['rr'], leaves[1],
+                                      leaves[0], leaves[2:],
+                                      knum=DEFTET['knum'], **engine)
+    if ct is None:
+        rng = np.random.default_rng(5)
+        ct = [torch.as_tensor(rng.standard_normal(tuple(f.shape)).astype(
+            np.float32), device=f.device) for f in feats]
+    loss = sum((f * c).sum() for f, c in zip(feats, ct))
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    return [f.detach() for f in feats], idx, grads, ct
+
+
+def _deftet_compare(a, b, what):
+    """(feature max|d|, gradient max|d| / max|g|); raises past the limits."""
+    _check(torch.equal(a[1].cpu(), b[1].cpu()), f'{what}: face_idx equal')
+    ferr = max((x.cpu() - y.cpu()).abs().max().item()
+               for x, y in zip(a[0], b[0]))
+    _check(ferr <= DEFTET_FEAT_ATOL, f'{what}: features')
+    gerr = 0.
+    for x, y in zip(a[2], b[2]):
+        x, y = x.cpu(), y.cpu()
+        scale = y.abs().max().item()
+        err = (x - y).abs().max().item()
+        if scale < DEFTET_ZERO_GRAD:    # z only selects and orders
+            _check(err < DEFTET_ZERO_GRAD, f'{what}: zero gradient')
+            continue
+        gerr = max(gerr, err / scale)
+    _check(gerr <= DEFTET_GRAD_REL, f'{what}: gradients')
+    return ferr, gerr
+
+
+def deftet(dev, card):
+    """Phase 15: the DefTet cell of bench.py::_phase_deftet, binned engine
+    (max_candidates 2048, pixel_chunk 1024), against the default engine on
+    the card and against the CPU at 64^2; times."""
+    H = DEFTET['height']
+    cell = deftet_cell(dev, H)
+    binned = dict(max_candidates=DEFTET['max_candidates'],
+                  pixel_chunk=DEFTET['pixel_chunk'])
+    b = _deftet_run(cell, binned)
+    d = _deftet_run(cell, {}, b[3])
+    ferr, gerr = _deftet_compare(b, d, 'binned vs default engine')
+    hits = (b[1] >= 0).sum(-1)
+    print(f'DefTet {H}^2, knum {DEFTET["knum"]}: binned engine vs default '
+          f'engine on the card: sorted face_idx equal, features max|d| '
+          f'{ferr:.2e} (limit {DEFTET_FEAT_ATOL:g}), gradients max|d|/max|g|'
+          f' {gerr:.2e} (limit {DEFTET_GRAD_REL:g}); layers per pixel max '
+          f'{int(hits.max())}, pixels hit {(hits > 0).float().mean():.4f}')
+    _check(int(hits.max()) >= 2, 'pixels with several layers')
+
+    small = deftet_cell(dev, DEFTET['check_height'])
+    card_s = _deftet_run(small, binned)
+    cpu = {k: v.cpu() for k, v in small.items()}
+    t0 = time.perf_counter()
+    cpu_s = _deftet_run(cpu, binned, [c.cpu() for c in card_s[3]])
+    cpu_sec = time.perf_counter() - t0
+    ferr_c, gerr_c = _deftet_compare(card_s, cpu_s, 'card vs CPU')
+    print(f'DefTet step 0 at {DEFTET["check_height"]}^2, card vs CPU '
+          f'({cpu_sec:.2f} s on the CPU): face_idx equal, features max|d| '
+          f'{ferr_c:.2e}, gradients max|d|/max|g| {gerr_c:.2e}')
+
+    def step(**engine):
+        f = cell['fvi'].detach().requires_grad_()
+        out, fidx = deftet_sparse_render(cell['pc'], cell['rr'],
+                                         cell['fvz'], f, cell['normals'],
+                                         knum=DEFTET['knum'], **engine)
+        loss = torch.where((fidx >= 0)[..., None], out, 0.).sum()
+        loss.backward()
+
+    step_ms = time_ms(lambda: step(**binned), 5)
+    default_ms = time_ms(lambda: step(), 3)
+    P = H * H
+    print(f'[{card}] DefTet step (binned engine, fwd + bwd to the '
+          f'image-space vertices, {P} pixels, knum {DEFTET["knum"]}, '
+          f'{cell["fvi"].shape[1]} faces): {step_ms:.3f} ms = '
+          f'{P / step_ms / 1e3:.3f} Mpix/s; default engine {default_ms:.3f} '
+          f'ms = {P / default_ms / 1e3:.3f} Mpix/s')
+    return dict(step_ms=step_ms, cpu_s=cpu_sec)
+
+
+# ---------------------------------------------------------------------------
+# tetmesh ops and losses
+
+def _close_grads(a, b, what):
+    scale = b.abs().max().item()
+    err = (a.cpu() - b).abs().max().item()
+    _check(scale > 0 and err <= TET_GRAD_REL * scale, what)
+    return err / scale
+
+
+def tetmesh(dev, card):
+    """Phase 16: marching tetrahedra on a tet grid of a cube with a sphere's
+    SDF, subdivide_tetmesh, equivolume and amips with gradients; each on
+    the card against the CPU."""
+    v, tets = tet_grid(TET_GRID)
+    sdf = (np.linalg.norm(v, axis=-1) - SDF_RADIUS)[None].astype(np.float32)
+    res = {}
+    for where in (dev, 'cpu'):
+        vt = torch.tensor(v[None], device=where, requires_grad=True)
+        st = torch.tensor(sdf, device=where, requires_grad=True)
+        verts, faces, tet_idx = marching_tetrahedra(vt, tets, st,
+                                                    return_tet_idx=True)
+        ct = torch.as_tensor(np.random.default_rng(9).standard_normal(
+            tuple(verts[0].shape)).astype(np.float32), device=where)
+        gv, gs = torch.autograd.grad((verts[0] * ct).sum(), [vt, st])
+        res[str(where)] = dict(verts=verts[0].detach().cpu(),
+                               faces=faces[0].cpu(), tet_idx=tet_idx[0].cpu(),
+                               gv=gv.cpu(), gs=gs.cpu())
+    c, g = res['cpu'], res[str(dev)]
+    verr = (g['verts'] - c['verts']).abs().max().item()
+    _check(torch.equal(g['faces'], c['faces'])
+           and torch.equal(g['tet_idx'], c['tet_idx']),
+           'marching tetrahedra: faces and tet ids equal')
+    _check(verr <= MT_VERT_ATOL, 'marching tetrahedra: vertices')
+    mt_g = max(_close_grads(g['gs'], c['gs'], 'marching tetrahedra: d/dsdf'),
+               _close_grads(g['gv'], c['gv'], 'marching tetrahedra: d/dv'))
+    print(f'marching_tetrahedra on a {TET_GRID}^3 grid ({len(tets)} tets, '
+          f'{len(v)} vertices), sphere SDF r={SDF_RADIUS}: '
+          f'{c["faces"].shape[0]} faces, {c["verts"].shape[0]} vertices; '
+          f'card vs CPU: faces and tet ids equal, vertices max|d| '
+          f'{verr:.2e} (limit {MT_VERT_ATOL:g}), gradients to sdf and '
+          f'vertices max|d|/max|g| {mt_g:.2e}')
+
+    jitter = (0.2 / TET_GRID * np.random.default_rng(8).standard_normal(
+        (1,) + v.shape)).astype(np.float32)
+    out = {}
+    for where in (dev, 'cpu'):
+        rest, new_tets = subdivide_tetmesh(torch.as_tensor(v[None]), tets,
+                                           device=where)
+        moved, _ = subdivide_tetmesh(torch.as_tensor(v[None] + jitter),
+                                     tets, device=where)
+        tv = moved[:, new_tets].detach().requires_grad_()
+        inv = inverse_vertices_offset(rest[:, new_tets])
+        ev = met_tet.equivolume(tv)
+        am = met_tet.amips(tv, inv)
+        g_ev, = torch.autograd.grad(ev.sum(), [tv])
+        g_am, = torch.autograd.grad(am.sum(), [tv])
+        out[str(where)] = dict(tets=new_tets.cpu(), rest=rest.cpu(),
+                               ev=ev.item(), am=am.item(), g_ev=g_ev.cpu(),
+                               g_am=g_am.cpu())
+    c, g = out['cpu'], out[str(dev)]
+    _check(torch.equal(g['tets'], c['tets']), 'subdivide: tets equal')
+    serr = (g['rest'] - c['rest']).abs().max().item()
+    _check(serr <= MT_VERT_ATOL, 'subdivide: vertices')
+    rel = [abs(g[k] - c[k]) / abs(c[k]) for k in ('ev', 'am')]
+    _check(max(rel) <= TET_LOSS_RTOL, 'equivolume and amips card vs CPU')
+    lg = max(_close_grads(g['g_ev'], c['g_ev'], 'equivolume gradient'),
+             _close_grads(g['g_am'], c['g_am'], 'amips gradient'))
+    print(f'subdivide_tetmesh once: {c["tets"].shape[0]} tets, card vs CPU '
+          f'equal (vertices max|d| {serr:.1e}); equivolume {c["ev"]:.6e}, '
+          f'amips {c["am"]:.6f}, card vs CPU rel {rel[0]:.1e}, {rel[1]:.1e}'
+          f' (limit {TET_LOSS_RTOL:g}); gradients max|d|/max|g| {lg:.2e}')
+
+    vt = torch.tensor(v[None], device=dev)
+    st = torch.tensor(sdf, device=dev)
+    mt_ms = time_ms(lambda: marching_tetrahedra(vt, tets, st), 3)
+    sub_ms = time_ms(lambda: subdivide_tetmesh(vt, tets), 3)
+    rest, new_tets = subdivide_tetmesh(vt, tets)
+    inv = inverse_vertices_offset(rest[:, new_tets])
+    moved, _ = subdivide_tetmesh(torch.as_tensor(v[None] + jitter,
+                                                 device=dev), tets)
+
+    def losses():
+        tv = moved[:, new_tets].requires_grad_()
+        loss = met_tet.equivolume(tv).sum() + met_tet.amips(tv, inv).sum()
+        loss.backward()
+
+    loss_ms = time_ms(losses, 5)
+    print(f'[{card}] marching_tetrahedra {mt_ms:.3f} ms (host topology); '
+          f'subdivide_tetmesh {sub_ms:.3f} ms; equivolume + amips fwd + bwd '
+          f'over {new_tets.shape[0]} tets {loss_ms:.3f} ms')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is '
@@ -974,37 +1370,74 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
     card = measure.card()
+    start = last = time.perf_counter()
+
+    def phase(name):
+        nonlocal last
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f'-- phase {name}: {now - last:.1f} s')
+        last = now
 
     toolchain(card)
+    phase('1: toolchain and kernel builds')
     scene = make_scene(dev)
     torch.cuda.synchronize()
     inputs = kernel_inputs(scene)
     fid, prod, k1_err = check_forward(scene, inputs)
+    phase('2: K1 against plain')
     g_prod, k2_err = check_backward(scene, inputs, fid, prod)
     culling(scene, inputs, g_prod)
-    launches = train(scene)
+    phase('3: K2 against plain, culling')
+    launches, _ = train(scene)
+    _check(launches['fwd'] >= STEPS and launches['bwd'] >= STEPS,
+           'both kernels launched on every step')
+    check_step_against_plain(make_scene(dev, **STEP0_SIZE))
+    phase('4: 5 Adam steps, step 0 against the CPU at '
+          f'{STEP0_SIZE["height"]}^2')
     t = times(scene, inputs, g_prod, card)
+    phase('5: DIB-R times and profile')
 
     fv = spc_mesh()
     spc_build(fv, dev)
+    phase('6: SPC builds')
     spc = spc_main_path(fv, dev)
     args, k3_err = check_trace_kernel(spc)
+    phase('6-7: SPC main path, K3 against plain')
     dense_err, dense_args = check_dense(dev)
     k3_err = max(k3_err, dense_err)
+    phase('8: K3 on the dense octree')
     check_against_bfs(spc)
+    phase('9: trace against the BFS')
     ts = spc_times(spc, args, card)
+    phase('10: SPC times')
 
     _check(_probe_counts() == 0, 'no probe kernel ran on the DIB-R and '
            'SPC paths')
     p1, c1 = probe_p1(spc, card)
+    phase('11: P1')
     p2, c2 = probe_p2(spc, card)
+    phase('12: P2 and the trace by stage')
     p3, c3 = probe_p3(args, dense_args, card)
-
+    phase('13: P3')
     k1_b, k1_f, k2_b, k2_f = dibr_work(scene, inputs, g_prod)
     k3_b, k3_f, _ = kbisect.trace_work(args, spc['hits'].count, False)
     print(f'bounds from this run\'s inputs: K1 {k1_b} bytes, {k1_f} flops; '
           f'K2 {k2_b} bytes, {k2_f} flops ({k2_f // K2_FLOPS} (face, pixel) '
           f'pairs); K3 {k3_b} bytes, {k3_f} flops')
+    spc_launches = spc['launches']
+    del spc, dense_args, scene, inputs, g_prod, fid, prod, args
+    torch.cuda.empty_cache()
+
+    for k in FU.LAUNCHES:
+        FU.LAUNCHES[k] = 0
+    config1(dev, card)
+    phase('14: config #1 (OBJ -> k-buffer DIB-R 256^2)')
+    deftet(dev, card)
+    phase('15: config #4 (DefTet 256^2)')
+    tetmesh(dev, card)
+    phase('16: tetmesh ops and losses')
+
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
     trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cu'
     kernels = [
@@ -1020,7 +1453,7 @@ def main():
              **_bound(k2_b, k2_f), library_ms=None),
         dict(name='spc_trace_kernel', route='cuda', source=trace_src,
              replaces='kaolin_tpu/render/spc/raster.py:459',
-             launches=spc['launches'], max_abs_err=k3_err,
+             launches=spc_launches, max_abs_err=k3_err,
              ms=ts['k3_ms'], plain_ms=ts['k3_plain_ms'],
              **_bound(k3_b, k3_f), library_ms=None),
     ]
@@ -1052,6 +1485,7 @@ def main():
             max_abs_err=p3['max_abs_err'][st], ms=k['ms'],
             plain_ms=k['plain_ms'], bound_ms=p3['bound_ms'],
             bound_by=p3['bound_by'], library_ms=None))
+    print(f'chip_smoke.py total: {time.perf_counter() - start:.1f} s')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

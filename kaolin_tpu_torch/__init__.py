@@ -15,11 +15,16 @@ Ported so far: slice 1, the DIB-R inverse-rendering step
 slice 2, the SPC pipeline from a triangle mesh to a level-L octree
 (:mod:`kaolin_tpu_torch.ops.spc`, :mod:`kaolin_tpu_torch.ops.conversions`,
 :mod:`kaolin_tpu_torch.rep`) and its coherent and BFS ray traces
-(:mod:`kaolin_tpu_torch.render.spc`).
+(:mod:`kaolin_tpu_torch.render.spc`); slice 6, the brute-force ('jnp')
+DIB-R backend with the k-buffer soft mask, the OBJ importer
+(:mod:`kaolin_tpu_torch.io`) and :class:`~kaolin_tpu_torch.rep.SurfaceMesh`,
+the DefTet renderer (:mod:`kaolin_tpu_torch.render.mesh.deftet`) and the
+tetmesh ops, losses and marching tetrahedra.
 """
 
 __version__ = "0.1.0"
 
+from kaolin_tpu_torch import io  # noqa: F401
 from kaolin_tpu_torch import metrics  # noqa: F401
 from kaolin_tpu_torch import ops  # noqa: F401
 from kaolin_tpu_torch import render  # noqa: F401

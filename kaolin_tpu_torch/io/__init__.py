@@ -1,0 +1,3 @@
+from kaolin_tpu_torch.io import materials  # noqa: F401
+from kaolin_tpu_torch.io import obj  # noqa: F401
+from kaolin_tpu_torch.io import utils  # noqa: F401

@@ -3,8 +3,9 @@
 Port of ``kaolin_tpu/models/inverse_render.py``: optimizable parameters
 (vertex positions, UV texture, SH lighting) in an ``nn.Module`` plus the
 render step.  A training step is :func:`compute_selection` (the
-non-differentiable fused selection, under ``no_grad``) followed by
-:func:`render_loss` and ``backward()``.
+non-differentiable selection, under ``no_grad``: the fused engine's, or
+with ``backend='jnp'`` the brute-force z-buffer and the soft mask's
+k-buffer) followed by :func:`render_loss` and ``backward()``.
 """
 
 import math
@@ -46,10 +47,10 @@ def init_params(mesh, texture_res=256, generator=None, device=None):
     """Init params from a mesh with ``.vertices`` (normalized into
     [-0.5, 0.5]^3) and a uniform random texture drawn from ``generator``
     (default: a CPU generator seeded with 0), on ``device`` (default: the
-    card, see :func:`~kaolin_tpu_torch._device.entry_device`)."""
-    device = entry_device(device)
-    v = torch.as_tensor(np.asarray(mesh.vertices), dtype=torch.float32,
-                        device=device)
+    device of ``mesh.vertices`` when it is a tensor, else the card, see
+    :func:`~kaolin_tpu_torch._device.entry_device`)."""
+    device = entry_device(device, mesh.vertices)
+    v = torch.as_tensor(mesh.vertices, dtype=torch.float32, device=device)
     vmin = v.amin(dim=0, keepdim=True)
     vmax = v.amax(dim=0, keepdim=True)
     v = (v - (vmin + vmax) / 2.) / (vmax - vmin).max()
@@ -101,23 +102,32 @@ def _prepare(params, views, faces):
 
 def compute_selection(params, views, faces, height, width, backend='auto',
                       boxlen=0.02, knum=30, sigmainv=7000.):
-    """Run the non-differentiable fused selection (z-buffer + soft-mask
-    product) on detached geometry.
+    """Run the non-differentiable selection passes (z-buffer + soft mask)
+    on detached geometry.
 
     Returns:
-        (face_idx (B, H, W), :class:`~kaolin_tpu_torch.render.mesh.FusedSelection`),
-        accepted by :func:`render_views` / :func:`render_loss` as
-        ``selection``.  ``knum`` is unused: the fused product is uncapped.
+        (face_idx (B, H, W), aux), accepted by :func:`render_views` /
+        :func:`render_loss` as ``selection``.  ``aux`` is the soft mask's
+        selection state: a :class:`~kaolin_tpu_torch.render.mesh.FusedSelection`
+        for ``'fused'`` (``knum`` unused: the fused product is uncapped), or
+        the (B, H, W, knum) k-buffer for ``'jnp'``.
     """
-    _resolve_backend(backend)
+    backend = _resolve_backend(backend)
     with torch.no_grad():
         face_vertices_camera, face_vertices_image, face_normals = \
             _prepare(params, views, faces)
-        sel = mesh_render.fused_selection(
-            face_vertices_camera[..., 2], face_vertices_image,
-            face_normals[..., 2] >= 0., height, width,
-            boxlen=boxlen, sigmainv=sigmainv)
-    return sel.face_idx, sel
+        if backend == 'fused':
+            sel = mesh_render.fused_selection(
+                face_vertices_camera[..., 2], face_vertices_image,
+                face_normals[..., 2] >= 0., height, width,
+                boxlen=boxlen, sigmainv=sigmainv)
+            return sel.face_idx, sel
+        face_idx = mesh_render.rasterize_selection(
+            height, width, face_vertices_camera[..., 2], face_vertices_image,
+            valid_faces=face_normals[..., 2] >= 0., backend=backend)
+        kbuf = mesh_render.dibr_soft_mask_select(
+            face_vertices_image, face_idx, boxlen=boxlen, knum=knum)
+    return face_idx, kbuf
 
 
 def render_views(params, views, faces, face_uvs, height, width,

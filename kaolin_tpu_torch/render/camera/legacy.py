@@ -12,6 +12,7 @@ from kaolin_tpu_torch._device import entry_device
 __all__ = [
     'rotate_translate_points',
     'generate_rotate_translate_matrices',
+    'generate_transformation_matrix',
     'perspective_camera',
     'generate_perspective_projection',
 ]
@@ -50,6 +51,22 @@ def generate_rotate_translate_matrices(camera_position, look_at,
     camy = camy / (torch.linalg.norm(camy, dim=1, keepdim=True) + 1e-10)
     mtx = torch.stack([camx, camy, -camz], dim=1)
     return mtx, camera_position
+
+
+def generate_transformation_matrix(camera_position, look_at,
+                                   camera_up_direction):
+    """(B, 4, 3) matrix for ``P_cam = [P_world | 1] @ M``."""
+    z_axis = camera_position - look_at
+    z_axis = z_axis / torch.linalg.norm(z_axis, dim=1, keepdim=True)
+    B = max(z_axis.shape[0], camera_up_direction.shape[0])
+    z_axis = z_axis.expand(B, 3)
+    up = camera_up_direction.expand(B, 3)
+    x_axis = torch.linalg.cross(up, z_axis, dim=1)
+    x_axis = x_axis / torch.linalg.norm(x_axis, dim=1, keepdim=True)
+    y_axis = torch.linalg.cross(z_axis, x_axis, dim=1)
+    rot_part = torch.stack([x_axis, y_axis, z_axis], dim=2)
+    trans_part = camera_position[:, None] @ rot_part
+    return torch.cat([rot_part, -trans_part], dim=1)
 
 
 def perspective_camera(points, camera_proj):

@@ -2,10 +2,21 @@
 
 Port of ``kaolin_tpu/render/mesh/rasterization.py``.  Rasterization is
 split into a non-differentiable selection pass (the z-buffer winner per
-pixel, from the fused engine in :mod:`._fused`) and a differentiable
-epilogue: gather the selected face per pixel, recompute its normalized
-barycentric weights with the ``copysign(eps)`` rule and interpolate the
-features.  Autograd of the epilogue is the rasterizer's backward.
+pixel) and a differentiable epilogue: gather the selected face per pixel,
+recompute its normalized barycentric weights with the ``copysign(eps)``
+rule and interpolate the features.  Autograd of the epilogue is the
+rasterizer's backward.
+
+Two selection backends, named as in the JAX package:
+
+* ``'fused'``: the tile-binned fused engine of :mod:`._fused` (kernel K1 on
+  the card);
+* ``'jnp'``: the brute-force selection in plain PyTorch, every pixel
+  against every face in chunks (:func:`_selection_jnp`).  The name is the
+  JAX package's, so that a backend name means the same in both packages.
+
+``'auto'`` is ``'fused'`` on every device (the JAX package picks ``'jnp'``
+off the TPU).
 
 Pixel-center convention: ``x0 = mult/W * (2*wi + 1 - W)``,
 ``y0 = mult/H * (H - 2*hi - 1)`` — image coords in [-1, 1] with y up and
@@ -17,18 +28,24 @@ import torch
 from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.render.mesh._fused import fused_selection
 
-__all__ = ['rasterize', 'rasterize_selection']
+__all__ = ['rasterize', 'rasterize_selection', 'fused_backend_supported']
 
-_BACKENDS = ('fused', 'auto')
+
+def fused_backend_supported(height, width):
+    """Whether the 'fused' backend supports this image size.
+
+    Always true: the engine pads the tile grid internally and crops.
+    """
+    return height >= 1 and width >= 1
 
 
 def _resolve_backend(backend):
-    if backend not in _BACKENDS:
-        raise NotImplementedError(
-            f'rasterization backend {backend!r} is not ported: the port has '
-            f'{list(_BACKENDS)}; the brute-force k-buffer backend (JAX '
-            "'jnp') is a ROADMAP open item (slice 1, k-buffer backend)")
-    return 'fused'
+    if backend == 'auto':
+        return 'fused'
+    if backend not in ('jnp', 'fused'):
+        raise ValueError(f'"{backend}" is not a valid backend, '
+                         'valid choices are ["jnp", "fused", "auto"]')
+    return backend
 
 
 def pixel_coords(height, width, multiplier, dtype=torch.float32,
@@ -43,6 +60,81 @@ def pixel_coords(height, width, multiplier, dtype=torch.float32,
     return xs, ys
 
 
+def _copysign_eps(norm, eps):
+    """copysign(eps, norm): the sign bit decides, so -0.0 takes -eps."""
+    return torch.where(torch.signbit(norm), -eps, eps)
+
+
+def _bary_weights_pairwise(fvi, x0, y0, eps):
+    """Normalized barycentric weights for pixels x faces.
+
+    fvi: (F, 3, 2); x0/y0: (P,).  Returns w0, w1, w2 each (P, F).
+    """
+    x0 = x0[:, None]
+    y0 = y0[:, None]
+    a_ex = fvi[None, :, 0, 0] - x0
+    a_ey = fvi[None, :, 0, 1] - y0
+    b_ex = fvi[None, :, 1, 0] - x0
+    b_ey = fvi[None, :, 1, 1] - y0
+    c_ex = fvi[None, :, 2, 0] - x0
+    c_ey = fvi[None, :, 2, 1] - y0
+    w0 = b_ex * c_ey - b_ey * c_ex
+    w1 = c_ex * a_ey - c_ey * a_ex
+    w2 = a_ex * b_ey - a_ey * b_ex
+    norm = w0 + w1 + w2
+    norm = norm + _copysign_eps(norm, eps)
+    return w0 / norm, w1 / norm, w2 / norm
+
+
+def _selection_jnp(face_vertices_z, face_vertices_image_scaled, valid_faces,
+                   xs, ys, height, width, eps, pixel_chunk=8192,
+                   face_chunk=1024):
+    """Z-buffer winning-face selection (single mesh), brute force.
+
+    Every pixel against every face, in blocks of ``pixel_chunk`` pixels by
+    ``face_chunk`` faces.  The answer does not depend on the chunk sizes:
+    within a chunk ``torch.max`` returns the first (lowest-index) maximum,
+    and across chunks only a strictly larger z replaces the winner, so a z
+    tie goes to the lowest face id.
+
+    Args:
+        face_vertices_z: (F, 3); face_vertices_image_scaled: (F, 3, 2)
+        (multiplier applied); valid_faces: (F,) bool; xs (W,), ys (H,).
+
+    Returns:
+        (H, W) int32 face index, -1 where empty.
+    """
+    F = face_vertices_z.shape[0]
+    P = height * width
+    pix = torch.arange(P, device=xs.device)
+    px, py = xs[pix % width], ys[pix // width]
+    out = torch.empty(P, dtype=torch.int32, device=xs.device)
+    neg_inf = float('-inf')
+    for lo_p in range(0, P, pixel_chunk):
+        x0, y0 = px[lo_p:lo_p + pixel_chunk], py[lo_p:lo_p + pixel_chunk]
+        best_z = torch.full(x0.shape, neg_inf, dtype=face_vertices_z.dtype,
+                            device=x0.device)
+        best_idx = torch.full(x0.shape, -1, dtype=torch.int32,
+                              device=x0.device)
+        for lo in range(0, F, face_chunk):
+            fvz = face_vertices_z[lo:lo + face_chunk]
+            w0, w1, w2 = _bary_weights_pairwise(
+                face_vertices_image_scaled[lo:lo + face_chunk], x0, y0, eps)
+            z0 = w0 * fvz[None, :, 0] + w1 * fvz[None, :, 1] \
+                + w2 * fvz[None, :, 2]
+            ok = ((w0 >= 0.) & (w1 >= 0.) & (w2 >= 0.)
+                  & valid_faces[None, lo:lo + face_chunk])
+            z0 = torch.where(ok, z0, neg_inf)
+            chunk_best, chunk_idx = torch.max(z0, dim=1)
+            upd = chunk_best > best_z
+            best_z = torch.where(upd, chunk_best, best_z)
+            best_idx = torch.where(upd, chunk_idx.to(torch.int32) + lo,
+                                   best_idx)
+        out[lo_p:lo_p + pixel_chunk] = torch.where(best_z > neg_inf,
+                                                   best_idx, -1)
+    return out.reshape(height, width)
+
+
 def _bary_weights_gathered(fv, x0, y0, eps):
     """Weights for one face per pixel.  fv: (..., 3, 2); x0/y0: (...)."""
     a_ex = fv[..., 0, 0] - x0
@@ -55,8 +147,7 @@ def _bary_weights_gathered(fv, x0, y0, eps):
     w1 = c_ex * a_ey - c_ey * a_ex
     w2 = a_ex * b_ey - a_ey * b_ex
     norm = w0 + w1 + w2
-    # copysign(eps, norm): the sign bit decides, so -0.0 takes -eps
-    norm = norm + torch.where(torch.signbit(norm), -eps, eps)
+    norm = norm + _copysign_eps(norm, eps)
     return w0 / norm, w1 / norm, w2 / norm
 
 
@@ -100,14 +191,26 @@ def rasterize_selection(height, width, face_vertices_z, face_vertices_image,
     Returns:
         ``(B, H, W)`` int32 winning-face indices (-1 = background).
     """
-    _resolve_backend(backend)
+    backend = _resolve_backend(backend)
     if multiplier is None:
         multiplier = 1000
     if eps is None:
         eps = 1e-8
-    return fused_selection(
-        face_vertices_z, face_vertices_image, valid_faces, height, width,
-        float(multiplier), eps=eps, with_softmask=False).face_idx
+    if backend == 'fused':
+        return fused_selection(
+            face_vertices_z, face_vertices_image, valid_faces, height, width,
+            float(multiplier), eps=eps, with_softmask=False).face_idx
+    B, F = face_vertices_z.shape[:2]
+    if valid_faces is None:
+        valid_faces = torch.ones((B, F), dtype=torch.bool,
+                                 device=face_vertices_z.device)
+    fvz = face_vertices_z.detach()
+    fvi_scaled = face_vertices_image.detach() * multiplier
+    xs, ys = pixel_coords(height, width, multiplier, dtype=fvz.dtype,
+                          device=fvz.device)
+    return torch.stack([
+        _selection_jnp(fvz[b], fvi_scaled[b], valid_faces[b], xs, ys,
+                       height, width, eps) for b in range(B)])
 
 
 def rasterize(height, width, face_vertices_z, face_vertices_image,
@@ -127,7 +230,7 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
         valid_faces: optional ``(B, F)`` bool mask.
         multiplier: coordinate scale to avoid numeric issues (default 1000).
         eps: barycentric normalization epsilon (default 1e-8).
-        backend: 'fused' or 'auto' (= 'fused').
+        backend: 'jnp' (brute force), 'fused', or 'auto' (= 'fused').
         with_weights: also return the per-pixel barycentric weights.
         precomputed_face_idx: ``(B, H, W)`` selection to reuse.
 

@@ -1,15 +1,21 @@
 """Test scaffolding shared by the tests and ``chip_smoke.py`` (numpy only).
 
 The repository holds no mesh file, so the DIB-R step and the SPC pipeline
-run on a procedural UV sphere whose output both packages can take.
+run on a procedural UV sphere whose output both packages can take; the
+OBJ importer reads that sphere written as OBJ + MTL text
+(:func:`write_sphere_obj`), and the tetmesh ops run on a tet grid of a
+cube (:func:`tet_grid`).
 """
 
+import itertools
+import os
 from typing import NamedTuple
 
 import numpy as np
 
 __all__ = ['UVSphere', 'uv_sphere', 'random_triangles', 'camera_grid',
-           'EDGE_SCENES', 'dibr_edge_scene', 'punch_cell_rows']
+           'EDGE_SCENES', 'dibr_edge_scene', 'punch_cell_rows',
+           'write_sphere_obj', 'tet_grid']
 
 
 def random_triangles(seed, F, B=2, spread=0.3):
@@ -165,3 +171,53 @@ def punch_cell_rows(rows, seed, share=0.25):
     holes |= (idx % 7 == 3)[:, None]
     filled[:, 3][holes] = -1
     return filled
+
+
+def write_sphere_obj(directory, sphere, material='sphere_mat',
+                     kd=(0.8, 0.6, 0.4)):
+    """Write ``sphere`` (a :class:`UVSphere`) as ``sphere.obj`` with its uvs
+    and a one-material ``sphere.mtl`` into ``directory``; returns the OBJ
+    path.  Coordinates are written with 9 significant digits, which float32
+    reads back exactly."""
+    with open(os.path.join(directory, 'sphere.mtl'), 'w') as f:
+        f.write(f'newmtl {material}\nKd {kd[0]} {kd[1]} {kd[2]}\n')
+    lines = ['mtllib sphere.mtl']
+    lines += [f'v {x:.9g} {y:.9g} {z:.9g}' for x, y, z in sphere.vertices]
+    lines += [f'vt {u:.9g} {v:.9g}' for u, v in sphere.uvs]
+    lines.append(f'usemtl {material}')
+    lines += ['f ' + ' '.join(f'{a + 1}/{b + 1}' for a, b in zip(f, t))
+              for f, t in zip(sphere.faces, sphere.face_uvs_idx)]
+    path = os.path.join(directory, 'sphere.obj')
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return path
+
+
+def tet_grid(n, lo=-1., hi=1.):
+    """A tet mesh of the cube [lo, hi]^3: an n^3 grid of cells, each cut
+    into 6 tets around its main diagonal (a conforming mesh), every tet
+    positively oriented.  Returns (vertices (V, 3) float32, tets (6 n^3, 4)
+    int64)."""
+    ax = np.linspace(lo, hi, n + 1)
+    vertices = np.stack(np.meshgrid(ax, ax, ax, indexing='ij'),
+                        -1).reshape(-1, 3).astype(np.float32)
+    cells = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing='ij'),
+                     -1).reshape(-1, 3)
+
+    def vid(c):
+        return (c[:, 0] * (n + 1) + c[:, 1]) * (n + 1) + c[:, 2]
+
+    tets = []
+    for order in itertools.permutations(range(3)):
+        path = [cells.copy()]
+        for axis in order:          # walk from corner 000 to 111
+            step = path[-1].copy()
+            step[:, axis] += 1
+            path.append(step)
+        tets.append(np.stack([vid(c) for c in path], -1))
+    tets = np.concatenate(tets)
+    v = vertices[tets].astype(np.float64)
+    vol = np.einsum('ij,ij->i', v[:, 1] - v[:, 0],
+                    np.cross(v[:, 2] - v[:, 0], v[:, 3] - v[:, 0]))
+    tets[vol < 0] = tets[vol < 0][:, [0, 2, 1, 3]]
+    return vertices, tets.astype(np.int64)

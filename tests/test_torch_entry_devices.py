@@ -5,11 +5,16 @@ when a card is available and raises otherwise (no silent CPU path);
 ``device='cpu'`` runs on the CPU; tensor inputs keep their device.  Whether
 there is a card is decided inside each test.
 """
+import tempfile
+
 import numpy as np
 import pytest
 import torch
 
+from kaolin_tpu_torch.io.obj import import_mesh
 from kaolin_tpu_torch.models import inverse_render as M
+from kaolin_tpu_torch.ops.conversions.tetmesh import marching_tetrahedra
+from kaolin_tpu_torch.ops.mesh.tetmesh import subdivide_tetmesh
 from kaolin_tpu_torch.ops.conversions.trianglemesh import (
     unbatched_mesh_to_spc_device)
 from kaolin_tpu_torch.ops.spc import (generate_points, morton_to_points,
@@ -22,7 +27,8 @@ from kaolin_tpu_torch.render.spc import (generate_primary_rays,
                                          unbatched_raytrace)
 from kaolin_tpu_torch.render.spc.raster import unbatched_raytrace_coherent
 from kaolin_tpu_torch.rep import Spc
-from kaolin_tpu_torch.utils.testing import camera_grid, uv_sphere
+from kaolin_tpu_torch.utils.testing import (camera_grid, tet_grid,
+                                            uv_sphere, write_sphere_obj)
 
 LEVEL = 3
 
@@ -56,7 +62,24 @@ def _bfs(device=None):
                               device=device)[0]
 
 
+def _import_mesh(device=None):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_sphere_obj(tmp, uv_sphere(8, 5))
+        return import_mesh(path, with_materials=True,
+                           device=device).face_uvs
+
+
+def _tets(device=None):
+    v, t = tet_grid(2)
+    return v[None], t, np.linalg.norm(v, axis=-1)[None] - 0.5
+
+
 ENTRY = {
+    'import_mesh': _import_mesh,
+    'marching_tetrahedra': lambda device=None: marching_tetrahedra(
+        *_tets(), device=device)[0][0],
+    'subdivide_tetmesh': lambda device=None: subdivide_tetmesh(
+        *_tets()[:2], device=device)[1],
     'init_params': lambda device=None: M.init_params(
         _Mesh, texture_res=4, device=device).vertices,
     'from_jax_params': lambda device=None: M.from_jax_params(

@@ -211,6 +211,13 @@ def test_port_imports_no_jax():
             'from kaolin_tpu_torch.utils import measure, testing; '
             'from kaolin_tpu_torch.probes import _kernels, kbisect, '
             'mosaic3, stages; '
+            'from kaolin_tpu_torch import io; '
+            'from kaolin_tpu_torch.io import obj, materials, utils; '
+            'from kaolin_tpu_torch.rep import surface_mesh; '
+            'from kaolin_tpu_torch.render.mesh import deftet; '
+            'from kaolin_tpu_torch.ops.mesh import tetmesh; '
+            'from kaolin_tpu_torch.metrics import tetmesh; '
+            'from kaolin_tpu_torch.ops.conversions import tetmesh; '
             'bad = [m for m in sys.modules '
             "if m == 'jax' or m.startswith(('jax.', 'kaolin_tpu.'))]; "
             'print(bad); sys.exit(1 if bad else 0)')

@@ -130,23 +130,19 @@ def test_rasterize_feature_list_and_precomputed():
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize('backend', ['jnp', 'cuda', 'torch'])
+@pytest.mark.parametrize('backend', ['cuda', 'torch', 'pallas'])
 def test_unported_backends_raise(backend):
+    """Backend names are the JAX package's: 'jnp', 'fused' and 'auto'; any
+    other raises the JAX package's ValueError."""
     fvz, fvi, feats, _ = random_scene(0, F=4, B=1)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='valid choices'):
         rast_t.rasterize(8, 8, torch.as_tensor(fvz), torch.as_tensor(fvi),
                          torch.as_tensor(feats), backend=backend)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='valid choices'):
         dibr_t.dibr_rasterization(8, 8, torch.as_tensor(fvz),
                                   torch.as_tensor(fvi),
                                   torch.as_tensor(feats),
                                   torch.ones(1, 4), rast_backend=backend)
-
-
-def test_dibr_soft_mask_needs_fused_selection():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        dibr_t.dibr_soft_mask(torch.zeros(1, 2, 3, 2),
-                              torch.zeros(1, 8, 8, dtype=torch.int32))
 
 
 @pytest.mark.parametrize('hw', [(64, 64), (40, 200)])
