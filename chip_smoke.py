@@ -86,6 +86,31 @@ JAX package computes both without a Pallas kernel):
     ``marching_tetrahedra``, one ``subdivide_tetmesh``, ``equivolume`` and
     ``amips`` with gradients, each on the card against the CPU; times.
 
+The SPC features, sparse convolutions and Camera API (plain PyTorch but
+K3; the JAX package computes them without a Pallas kernel), on the same
+sphere's level-10 octree:
+
+17. path A, NGLOD-style: ``unbatched_make_dual`` / ``unbatched_make_trinkets``,
+    16 seeded features on the level-10 dual corners, a pinhole
+    ``Camera.from_args`` at 1024^2 -> ``generate_rays`` ->
+    ``unbatched_raytrace_coherent(engine='mosaic', grid_shape=...)`` (K3)
+    -> ``hits_to_nuggets`` -> ``unbatched_interpolate_trilinear`` at each
+    nugget's mid depth -> ``exponential_integration`` (channels 0-2 colour,
+    3 optical thickness) -> L1 against a target from other features ->
+    backward -> 5 Adam steps, K3's launches counted around them; K3 against
+    its plain version on the camera's own rays (bit for bit), the trace
+    against the BFS, step 0 at 128^2 against the CPU; times (step, trace,
+    interpolation, integration, backward, K3 alone on pinhole rays), peak
+    memory, the step on the card's timeline;
+18. path B: ``Conv3d`` (16 -> 32, 3^3) -> ``Conv3d`` (32 -> 64, 2^3, jump 1)
+    -> ``ConvTranspose3d`` (64 -> 32, 2^3, jump 1) over the level-10 ``Spc``,
+    an L2 loss, backward; the stack at level 7 on the card against the CPU;
+    ``to_dense`` at level 7, ``Spc.from_features`` of that grid and
+    ``trianglemeshes_to_voxelgrids`` at 128^3 on the card against the CPU;
+    forward and backward times, split per layer into ``unbatched_query``,
+    the pair compaction, the gather and the per-tap matmul, peak memory,
+    the step on the card's timeline.
+
 Each phase prints its seconds, and the script its total.
 
 Every kernel of the ``kernels`` line carries its time, its plain
@@ -100,6 +125,7 @@ it lists the kernels.
 """
 
 import json
+import math
 import subprocess
 import tempfile
 import time
@@ -118,9 +144,16 @@ from kaolin_tpu_torch.ops.mesh.tetmesh import (inverse_vertices_offset,
 from kaolin_tpu_torch.probes import _kernels as PK
 from kaolin_tpu_torch.probes import kbisect, mosaic3, stages
 from kaolin_tpu_torch.ops.conversions.trianglemesh import (
-    _tri_aabb_sat, unbatched_mesh_to_spc, unbatched_mesh_to_spc_device)
-from kaolin_tpu_torch.ops.spc import (generate_points, scan_octrees,
-                                      unbatched_points_to_octree)
+    _tri_aabb_sat, trianglemeshes_to_voxelgrids, unbatched_mesh_to_spc,
+    unbatched_mesh_to_spc_device)
+from kaolin_tpu_torch.ops.spc import (
+    Conv3d, ConvTranspose3d, generate_points, scan_octrees, to_dense,
+    unbatched_get_level_points, unbatched_interpolate_trilinear,
+    unbatched_make_dual, unbatched_make_trinkets, unbatched_points_to_octree,
+    unbatched_query)
+from kaolin_tpu_torch.ops.spc.convolution import (tap_coords, tap_pairs,
+                                                  tap_products)
+from kaolin_tpu_torch.render.camera import Camera
 from kaolin_tpu_torch.render.mesh import _fused as FU
 from kaolin_tpu_torch.render.mesh import (deftet_sparse_render,
                                           dibr_soft_mask,
@@ -130,7 +163,9 @@ from kaolin_tpu_torch.render.spc import (
     _trace, exponential_integration, hits_to_nuggets, mark_pack_boundaries,
     unbatched_raytrace)
 from kaolin_tpu_torch.render.spc.raster import (
-    _block_order, build_cell_table, trace_inputs, unbatched_raytrace_coherent)
+    _beam_bounds, _beam_chunk_test, _block_order, _pad_rays,
+    build_cell_table, grid_order, trace_inputs, unbatched_raytrace_coherent)
+from kaolin_tpu_torch.rep import Spc
 from kaolin_tpu_torch.utils import measure
 from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
 from kaolin_tpu_torch.utils.testing import (camera_grid, punch_cell_rows,
@@ -211,6 +246,40 @@ BARY_ATOL = 1e-5
 GRAZING = 1e-5              # trace-only hits must span less than this
 BFS_DEPTH_ATOL = 1e-6
 OPACITY_ATOL = 1e-5
+# path A (phase 17): a pinhole camera 1.49 from the sphere's centre, 14
+# degrees off the z axis, sees the sphere fill ~45 % of its pixels at a 45
+# degree fov
+CAMERA = dict(eye=(0.3, 0.2, 1.45), at=(0., 0., 0.), up=(0., 1., 0.),
+              fov=math.radians(45))
+IMAGE = 1024
+FEAT_DIM = 16
+FEAT_SEEDS = (17, 18)       # trained and target corner features
+FEAT_LR = 1e-2
+# the mid-depth samples need exit depths.  TRACE's caps were sized for
+# parallel rays; this camera's diverging rays give fatter interval beams
+# (this scene on the H100: up to 882 candidate cells per super-tile against
+# TRACE's 512, up to 63 per block, 16,698 non-empty blocks against the
+# 4,096 that TRACE's segments give more than 4 cells), so path A cuts no
+# candidate: 1,024 cells per super-tile, 128 per block, every block
+NG_TRACE = dict(TRACE, with_exit=True, segments=((None, 128),),
+                max_super_voxels=192 * 1024,
+                max_active_blocks=(IMAGE * IMAGE) // TRACE['rays_per_tile'])
+NG_STEP0 = 128              # step 0 on the card against the CPU
+# at 128^2 a block spans 8 x 8 times the pixels and a super-tile 15 image
+# rows: no cut at all
+NG_STEP0_TRACE = dict(NG_TRACE, segments=((None, 2 ** 16),),
+                      max_super_voxels=192 * 2 ** 16)
+NG_LOSS_RTOL = 1e-5
+NG_GRAD_REL = 1e-3          # the optical thickness's gradient is a sample's
+#                             own term less the sum over the samples behind
+#                             it: it cancels, as phase 4's gradients do
+# path B (phase 18)
+CONV_SEED = 19
+CONV_PARITY_LEVEL = 7       # the stack on the card against the CPU
+CONV_OUT_REL = 1e-5
+CONV_GRAD_REL = 1e-4        # the weight gradients sum over every point
+DENSE_LEVEL = 7
+VOXEL_RES = 128
 
 
 def _bound(nbytes, flops):
@@ -471,17 +540,17 @@ def train(scene, steps=STEPS):
     return launches, losses
 
 
-def step_profile(scene, card, steps=3, top=8):
-    """The step on the card's timeline (``torch.profiler`` over ``steps``
+def step_profile(step, card, steps=3, top=8):
+    """``step()`` on the card's timeline (``torch.profiler`` over ``steps``
     steps after the timed ones): kernels per step, the union of their
     intervals against the host clock (device busy and idle share), and the
-    kernels that take the most device time."""
+    kernels that take the most device time.  Returns the idle share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            _step(scene, scene['params'])
+            step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     path = _cuda.BUILD_DIR / 'step_trace.json'
@@ -503,6 +572,7 @@ def step_profile(scene, card, steps=3, top=8):
           f'(idle share {1 - busy / 1e3 / wall:.3f}), kernel time '
           f'{sum(by_name.values()):.3f} ms per step; largest: ' + '; '.join(
               f'{n[:48]} {ms:.3f}' for n, ms in heavy))
+    return 1 - busy / 1e3 / wall
 
 
 def times(scene, inputs, g_prod, card):
@@ -512,7 +582,7 @@ def times(scene, inputs, g_prod, card):
     F = scene['faces'].shape[0]
     vt, tr, ctr, cbb = inputs
     step_ms = time_ms(lambda: _step(scene, scene['params']), 5)
-    step_profile(scene, card)
+    step_profile(lambda: _step(scene, scene['params']), card)
     fwd = (vt, tr, cbb, H, H, MULT, EPS, SIGMAINV, True)
     bwd = (vt, ctr, cbb, g_prod, H, H, MULT, SIGMAINV)
     k1_ms = time_ms(lambda: FU._fused_forward_cuda(*fwd), 20)
@@ -814,6 +884,15 @@ def check_against_bfs(spc):
            and torch.equal(hits.pidx, main.pidx)
            and torch.equal(_bits(hits.t_near), _bits(main.t_near)),
            'with_exit changes no hit')
+    hits_vs_bfs(spc, spc['o'], spc['d'], hits)
+
+
+def hits_vs_bfs(spc, o, d, hits):
+    """A trace's hits (with exit depths) against the port's BFS on the same
+    rays: every BFS hit traced, extras only where grazing, common depths
+    within BFS_DEPTH_ATOL."""
+    args = (spc['octree'], spc['ph'], spc['pyramid'], spc['exsum'], o, d,
+            SPC_LEVEL)
     r2, p2, d2 = hits_to_nuggets(hits)
     t0 = time.perf_counter()
     r1, p1, d1, info = unbatched_raytrace(*args, with_exit=True,
@@ -833,7 +912,7 @@ def check_against_bfs(spc):
     span = d2[~in_bfs, 1] - d2[~in_bfs, 0]
     span_max = span.max().item() if span.numel() else 0.
     print(f'trace vs BFS ({bfs_s:.2f} s host clock, first call), '
-          f'{spc["o"].shape[0]} rays: BFS {r1.shape[0]} nuggets (saturated '
+          f'{o.shape[0]} rays: BFS {r1.shape[0]} nuggets (saturated '
           f'{info.saturated}), trace {r2.shape[0]}; BFS hits missing from '
           f'the trace {int((~found).sum())}; trace-only hits '
           f'{span.shape[0]}, max span {span_max:.2e} (limit {GRAZING:g}); '
@@ -1154,7 +1233,7 @@ def config1(dev, card):
           f'{ksel_ms:.3f} ms; soft-mask epilogue forward {fwd_ms:.3f} ms, '
           f'forward + backward {fwdbwd_ms:.3f} ms, so backward '
           f'{fwdbwd_ms - fwd_ms:.3f} ms')
-    step_profile(scene, card)
+    step_profile(lambda: _step(scene, scene['params']), card)
     return dict(step_ms=step_ms, cpu_s=cpu_s)
 
 
@@ -1362,6 +1441,418 @@ def tetmesh(dev, card):
           f'over {new_tets.shape[0]} tets {loss_ms:.3f} ms')
 
 
+# ---------------------------------------------------------------------------
+# Path A: a pinhole camera's rays through K3, trilinear features on the
+# level-10 dual corners, Beer-Lambert integration, L1, Adam (NGLOD-style)
+
+def corner_features(n, seed):
+    """(n, FEAT_DIM) float32 corner features from a numpy seed: colour in
+    [0, 1), optical thickness in [0.5, 1.5), the rest N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.random((n, 3)), rng.uniform(0.5, 1.5, (n, 1)),
+                           rng.normal(size=(n, FEAT_DIM - 4))],
+                          -1).astype(np.float32)
+
+
+def nglod_scene(fv, dev):
+    """Path A's scene through the entry points: the level-10 octree, its
+    dual and trinkets, the cell table; the trained and the target corner
+    features (numpy) of the level-10 dual slice."""
+    octree, _, _, _ = unbatched_mesh_to_spc_device(
+        torch.as_tensor(fv, device=dev), SPC_LEVEL, cap=SPC_CAPS[0])
+    _, pyramids, exsum = scan_octrees(octree, [octree.shape[0]])
+    ph = generate_points(octree, pyramids, exsum)
+    pyr = pyramids[0]
+    dual, pyr_dual = unbatched_make_dual(ph, pyr)
+    trinkets, _ = unbatched_make_trinkets(ph, pyr, dual, pyr_dual)
+    n = int(pyr_dual[0, SPC_LEVEL])
+    return dict(octree=octree, pyramid=pyr, exsum=exsum, ph=ph,
+                trinkets=trinkets, n_dual=n,
+                table=build_cell_table(ph, pyr, SPC_LEVEL, **CELLS),
+                feats=corner_features(n, FEAT_SEEDS[0]),
+                target_feats=corner_features(n, FEAT_SEEDS[1]))
+
+
+def camera_trace(scene, camera, trace=NG_TRACE):
+    """The camera's rays (image order) and their k-buffer of hits, traced
+    with the ``trace`` settings."""
+    o, d = (x[0] for x in camera.generate_rays())
+    hits = unbatched_raytrace_coherent(
+        scene['octree'], scene['ph'], scene['pyramid'], scene['exsum'], o, d,
+        SPC_LEVEL, engine='mosaic', cell_table=scene['table'],
+        grid_shape=(camera.height, camera.width), **trace)
+    return o, d, hits
+
+
+def interpolate(scene, o, d, nuggets, feats):
+    """The features at each nugget's mid depth, o + d (t_near + t_far) / 2
+    (one sample per nugget)."""
+    ridx, pidx, depths = nuggets
+    mid = o[ridx] + d[ridx] * ((depths[:, 0] + depths[:, 1]) / 2)[:, None]
+    return unbatched_interpolate_trilinear(
+        mid[:, None], pidx, scene['ph'], scene['trinkets'], feats,
+        SPC_LEVEL)[:, 0]
+
+
+def integrate(samples, ridx, num_rays):
+    """Channels 0-2 as colour and 3 as optical thickness, integrated along
+    each ray into a (num_rays, 3) image (0 where a ray hits nothing)."""
+    first = mark_pack_boundaries(ridx)
+    colour, _ = exponential_integration(samples[:, :3], samples[:, 3:4],
+                                        first)
+    return torch.zeros((num_rays, 3), device=samples.device).index_put(
+        (ridx[first].long(),), colour)
+
+
+def feature_image(scene, camera, feats, trace=NG_TRACE):
+    o, d, hits = camera_trace(scene, camera, trace)
+    nuggets = hits_to_nuggets(hits)
+    samples = interpolate(scene, o, d, nuggets, feats)
+    return integrate(samples, nuggets[0], o.shape[0]), hits
+
+
+def nglod_step(scene, camera, feats, target, trace=NG_TRACE):
+    """Render, L1 against ``target``, backward to ``feats``."""
+    image, hits = feature_image(scene, camera, feats, trace)
+    loss = (image - target).abs().mean()
+    feats.grad = None
+    loss.backward()
+    return loss, hits
+
+
+def super_tile_candidates(table, o, d, rt):
+    """The cells each super-tile's interval beam meets (the culling's first
+    test, before any cap), for rays in trace order."""
+    o, d = _pad_rays(o, d, rt)
+    nB = o.shape[0] // rt
+    _, (olo, ohi, dlo, dhi) = _beam_bounds(o.reshape(nB, rt, 3),
+                                           d.reshape(nB, rt, 3), nB // 64)
+    Mc = table.blo.shape[0] - 1
+    return _beam_chunk_test(olo[:, None], ohi[:, None], dlo[:, None],
+                            dhi[:, None], table.blo[None, :Mc],
+                            table.bhi[None, :Mc]).sum(1)
+
+
+def make_camera(size, dev):
+    return Camera.from_args(**CAMERA, width=size, height=size, device=dev)
+
+
+def nglod_step0(scene, dev):
+    """Step 0 at NG_STEP0^2 on the card and on the CPU (the scene copied,
+    its cell table built there; K3's plain version traces): hits equal,
+    loss and feature gradient close."""
+    cpu = {k: scene[k].cpu() for k in ('octree', 'exsum', 'ph', 'trinkets')}
+    cpu.update(pyramid=scene['pyramid'],
+               table=build_cell_table(cpu['ph'], scene['pyramid'], SPC_LEVEL,
+                                      **CELLS))
+    out = {}
+    for where, sc in ((dev, scene), ('cpu', cpu)):
+        camera = make_camera(NG_STEP0, where)
+        with torch.no_grad():
+            target, hits = feature_image(sc, camera, torch.as_tensor(
+                scene['target_feats'], device=where), NG_STEP0_TRACE)
+        _check(not bool(hits.saturated), 'path A step 0 does not saturate')
+        feats = torch.tensor(scene['feats'], device=where,
+                             requires_grad=True)
+        t0 = time.perf_counter()
+        loss, hits = nglod_step(sc, camera, feats, target, NG_STEP0_TRACE)
+        out[str(where)] = (loss.item(), feats.grad.cpu(), hits.count.cpu(),
+                           hits.pidx.cpu(), time.perf_counter() - t0)
+    (lg, gg, cg, pg, _), (lc, gc, cc, pc, cpu_s) = out[str(dev)], out['cpu']
+    rel = abs(lg - lc) / abs(lc)
+    scale = gc.abs().max().item()
+    g_rel = (gg - gc).abs().max().item() / scale
+    print(f'path A step 0 at {NG_STEP0}^2, card vs CPU ({cpu_s:.2f} s on the '
+          f'CPU): hits equal {torch.equal(cg, cc) and torch.equal(pg, pc)}; '
+          f'loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e}, limit '
+          f'{NG_LOSS_RTOL:g}); feature gradient max|d|/max|g| {g_rel:.2e} '
+          f'(limit {NG_GRAD_REL:g})')
+    _check(torch.equal(cg, cc) and torch.equal(pg, pc),
+           'path A step 0: hits card == CPU')
+    _check(rel <= NG_LOSS_RTOL, 'path A step 0: loss card vs CPU')
+    _check(scale > 0 and g_rel <= NG_GRAD_REL,
+           'path A step 0: feature gradient card vs CPU')
+
+
+def path_a(fv, dev, card):
+    """Phase 17: path A through the entry points at 1024^2 (5 Adam steps,
+    K3's launches counted around them); K3 against its plain version on the
+    camera's own rays; the trace against the BFS; step 0 against the CPU;
+    times."""
+    scene = nglod_scene(fv, dev)
+    camera = make_camera(IMAGE, dev)
+    N = IMAGE * IMAGE
+    with torch.no_grad():
+        target, hits = feature_image(scene, camera, torch.as_tensor(
+            scene['target_feats'], device=dev))
+    share = (hits.count > 0).float().mean().item()
+    print(f'path A scene: level {SPC_LEVEL}, {scene["ph"].shape[0]} points, '
+          f'{scene["n_dual"]} level-{SPC_LEVEL} dual corners x {FEAT_DIM} '
+          f'features, {scene["table"].rows.shape[0] - 1} cells (overflow '
+          f'{scene["table"].overflow}); pinhole camera {IMAGE}x{IMAGE}, eye '
+          f'{CAMERA["eye"]}: {share:.4f} of the {N} pixels hit, '
+          f'{int(hits.count.sum())} hits, max {int(hits.count.max())} per '
+          f'ray, saturated {bool(hits.saturated)}')
+    _check(0.3 <= share <= 0.6, 'path A: 30-60 % of the pixels hit')
+    _check(scene['table'].overflow == 0, 'path A: cell table overflow 0')
+    _check(not bool(hits.saturated), 'path A: the trace does not saturate')
+
+    feats = torch.tensor(scene['feats'], device=dev, requires_grad=True)
+    opt = torch.optim.Adam([feats], lr=FEAT_LR)
+    losses = []
+    torch.cuda.synchronize()
+    _trace.LAUNCHES['trace'] = 0
+    for _ in range(STEPS):
+        loss, hits = nglod_step(scene, camera, feats, target)
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    launches = _trace.LAUNCHES['trace']
+    print(f'path A, {STEPS} Adam steps (lr {FEAT_LR:g}): L1 '
+          + ', '.join(f'{x:.7f}' for x in losses)
+          + f'; K3 launches {launches}')
+    _check(launches >= STEPS, 'K3 launched on every path A step')
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           'path A: the loss falls')
+
+    o, d = (x[0] for x in camera.generate_rays())
+    perm = torch.as_tensor(grid_order(IMAGE, IMAGE,
+                                      TRACE['rays_per_tile'])[0], device=dev)
+    keys = ('rays_per_tile', 'segments', 'max_super_voxels',
+            'max_active_blocks')
+    args, sat = trace_inputs(scene['table'], o[perm], d[perm],
+                             knum=NG_TRACE['knum'],
+                             **{k: NG_TRACE[k] for k in keys})
+    off = scene['table'].offset
+    out_k = _trace._trace_cuda(with_exit=True, pidx_offset=off, **args)
+    torch.cuda.synchronize()
+    out_p = _trace._trace_torch(with_exit=True, pidx_offset=off, **args)
+    same = _same_outputs(out_k, out_p)
+    err = _max_t_err(out_k, out_p)
+    main = hits.count[perm]
+    print(f'K3 vs plain on path A\'s pinhole rays: {args["nb"].shape[0]} '
+          f'active blocks of {args["num_blocks"]}, candidate cells per block '
+          f'max {int(args["nb"].max())}, mean '
+          f'{args["nb"].float().mean().item():.2f}; count, pidx, t_near and '
+          f't_far (bitwise) equal: {same}; max|dt| {err:.3e}; counts as on '
+          f'the main path: {torch.equal(out_k[3].reshape(-1)[:N], main)}; '
+          f'culling saturated {bool(sat)}')
+    sup = super_tile_candidates(scene['table'], o[perm], d[perm],
+                                TRACE['rays_per_tile'])
+    print(f'  culling: candidate cells per super-tile (64 blocks) max '
+          f'{int(sup.max())}, mean {sup.float().mean().item():.1f} of '
+          f'{scene["table"].rows.shape[0] - 1} cells')
+    _check(same, 'K3 equals its plain version on pinhole rays')
+    _check(torch.equal(out_k[3].reshape(-1)[:N], main),
+           'the path A steps went through the same K3 rows')
+    _check(not bool(sat), 'path A culling does not saturate')
+    hits_vs_bfs(scene, o, d, hits)
+    nglod_step0(scene, dev)
+
+    nuggets = hits_to_nuggets(hits)
+    samples = interpolate(scene, o, d, nuggets, feats)
+    step_ms = time_ms(lambda: nglod_step(scene, camera, feats, target), 3)
+    trace_ms = time_ms(lambda: camera_trace(scene, camera), 3)
+    nug_ms = time_ms(lambda: hits_to_nuggets(hits), 3)
+    interp_ms = time_ms(lambda: interpolate(scene, o, d, nuggets, feats), 3)
+    integ_ms = time_ms(lambda: integrate(samples, nuggets[0], N), 3)
+    fwd_ms = time_ms(lambda: feature_image(scene, camera, feats), 3)
+    launch = {k: v for k, v in args.items() if k != 'num_blocks'}
+    k3 = {}
+    for with_exit in (False, True):
+        buf = _trace._outputs(args['num_blocks'], args['rays'].shape[1],
+                              args['kbuf'], dev)
+        k3[with_exit] = time_ms(lambda: _trace._launch(
+            with_exit=with_exit, out=buf, pidx_offset=off, **launch), 20)
+    k3_b, k3_f, _ = kbisect.trace_work(args, out_k[3], True)
+    torch.cuda.reset_peak_memory_stats()
+    nglod_step(scene, camera, feats, target)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[{card}] path A step (camera rays -> trace -> nuggets -> '
+          f'trilinear -> integration -> L1 -> backward, {N} rays, '
+          f'{nuggets[0].shape[0]} samples): {step_ms:.3f} ms = '
+          f'{N / step_ms / 1e3:.3f} Mrays/s; forward {fwd_ms:.3f} ms, so '
+          f'backward {step_ms - fwd_ms:.3f} ms; trace (rays + culling + K3 '
+          f'+ outputs) {trace_ms:.3f} ms, hits_to_nuggets {nug_ms:.3f}, '
+          f'interpolation {interp_ms:.3f}, integration + image '
+          f'{integ_ms:.3f} ms; peak device memory of a step {peak:.3f} GiB')
+    print(f'[{card}] K3 on the pinhole rays: {k3[False]:.4f} ms without '
+          f'exit depths (phase 10\'s parallel rays: see above), '
+          f'{k3[True]:.4f} ms with them (as path A runs it); bound '
+          f'{_bound(k3_b, k3_f)["bound_ms"]:.4f} ms with exit depths '
+          f'({k3_b} bytes, {k3_f} flops)')
+    idle = step_profile(lambda: nglod_step(scene, camera, feats, target),
+                        card)
+    return dict(launches=launches, k3_ms=k3[False], k3_exit_ms=k3[True],
+                k3_err=err, step_ms=step_ms, idle=idle)
+
+
+# ---------------------------------------------------------------------------
+# Path B: sparse convolutions over the level-10 octree
+
+def offsets(lo, hi):
+    """All kernel vectors in [lo, hi)^3, x slowest: (K, 3) int32."""
+    r = np.arange(lo, hi)
+    return np.stack(np.meshgrid(r, r, r, indexing='ij'),
+                    -1).reshape(-1, 3).astype(np.int32)
+
+
+def conv_layers(dev):
+    """Conv3d(16 -> 32, 3^3, jump 0) -> Conv3d(32 -> 64, 2^3, jump 1) ->
+    ConvTranspose3d(64 -> 32, 2^3, jump 1), weights from CONV_SEED."""
+    g = torch.Generator().manual_seed(CONV_SEED)
+    return [Conv3d(16, 32, offsets(-1, 2), 0, generator=g, device=dev),
+            Conv3d(32, 64, offsets(0, 2), 1, generator=g, device=dev),
+            ConvTranspose3d(64, 32, offsets(0, 2), 1, generator=g,
+                            device=dev)]
+
+
+def conv_forward(spc, layers, x, level):
+    """The stack's output, each layer's (input, input level) and the
+    output level."""
+    ins = []
+    for layer in layers:
+        ins.append((x, level))
+        x, level = layer(spc.octrees, spc.point_hierarchies, level,
+                         spc.pyramids, spc.exsum, x)
+    return x, ins, level
+
+
+def conv_step(spc, layers, x, level):
+    """Forward, L2 loss, backward to the input and the weights."""
+    for p in [x] + [p for m in layers for p in m.parameters()]:
+        p.grad = None
+    out, _, _ = conv_forward(spc, layers, x, level)
+    loss = out.square().mean()
+    loss.backward()
+    return out, loss
+
+
+def conv_card_vs_cpu(fv, dev):
+    """The stack at CONV_PARITY_LEVEL of the same mesh, on the card and on
+    the CPU with the same weights and input: outputs and gradients."""
+    octree = unbatched_mesh_to_spc_device(torch.as_tensor(fv, device=dev),
+                                          CONV_PARITY_LEVEL)[0]
+    res = {}
+    for where in (dev, 'cpu'):
+        spc = Spc(octree.to(where), [octree.shape[0]])
+        layers = conv_layers(where)
+        n = int(spc.pyramids[0, 0, CONV_PARITY_LEVEL])
+        x = torch.tensor(np.random.default_rng(CONV_SEED).normal(
+            size=(n, 16)).astype(np.float32), device=where,
+            requires_grad=True)
+        out, _ = conv_step(spc, layers, x, CONV_PARITY_LEVEL)
+        res[str(where)] = [out.detach().cpu(), x.grad.cpu()] + [
+            p.grad.cpu() for m in layers for p in m.parameters()]
+    rel = [(g - c).abs().max().item() / c.abs().max().item()
+           for g, c in zip(res[str(dev)], res['cpu'])]
+    print(f'conv stack at level {CONV_PARITY_LEVEL} ({res["cpu"][0].shape[0]}'
+          f' output points), card vs CPU: output max|d|/max {rel[0]:.2e} '
+          f'(limit {CONV_OUT_REL:g}); gradients to the input, weights and '
+          f'biases max|d|/max|g| {max(rel[1:]):.2e} (limit '
+          f'{CONV_GRAD_REL:g})')
+    _check(rel[0] <= CONV_OUT_REL, 'conv stack output card vs CPU')
+    _check(max(rel[1:]) <= CONV_GRAD_REL, 'conv stack gradients card vs CPU')
+
+
+def dense_card_vs_cpu(spc, fv, dev):
+    """``to_dense`` at DENSE_LEVEL, ``Spc.from_features`` of that grid and
+    ``trianglemeshes_to_voxelgrids`` at VOXEL_RES, card against CPU."""
+    pyr = spc.pyramids
+    n = int(pyr[0, 0, DENSE_LEVEL])
+    x = np.random.default_rng(CONV_SEED + 1).normal(
+        size=(n, 16)).astype(np.float32)
+    s = uv_sphere(*SPHERE)
+    verts = (s.vertices * SPC_RADIUS)[None].astype(np.float32)
+    out = {}
+    for where in (dev, 'cpu'):
+        ph = spc.point_hierarchies.to(where)
+        grid = to_dense(ph, pyr, torch.as_tensor(x, device=where),
+                        DENSE_LEVEL)
+        back = Spc.from_features(grid)
+        vox = trianglemeshes_to_voxelgrids(torch.as_tensor(
+            verts, device=where), s.faces, VOXEL_RES)
+        out[str(where)] = [t.cpu() for t in (grid, back.octrees,
+                                             back.features, vox)]
+    g, c = out[str(dev)], out['cpu']
+    same = [torch.equal(a, b) for a, b in zip(g, c)]
+    prefix = int(pyr[0, 1, DENSE_LEVEL])
+    round_trip = (torch.equal(c[1], spc.octrees[:prefix].cpu())
+                  and torch.equal(c[2], torch.as_tensor(x)))
+    print(f'to_dense at level {DENSE_LEVEL} ({n} points -> '
+          f'{tuple(c[0].shape)}), Spc.from_features of it, '
+          f'trianglemeshes_to_voxelgrids at {VOXEL_RES} ({int(c[3].sum())} '
+          f'voxels): card == CPU {same}; from_features gives back the '
+          f'octree\'s first {DENSE_LEVEL} levels and the features: '
+          f'{round_trip}')
+    _check(all(same), 'to_dense, from_features, voxelgrids card == CPU')
+    _check(round_trip, 'from_features(to_dense(x)) == the octree and x')
+
+
+def path_b(fv, dev, card):
+    """Phase 18: the conv stack forward and backward over the level-10
+    octree (an Spc); card against CPU at CONV_PARITY_LEVEL; to_dense,
+    from_features and voxel grids card against CPU; times, peak memory."""
+    octree = unbatched_mesh_to_spc_device(torch.as_tensor(fv, device=dev),
+                                          SPC_LEVEL, cap=SPC_CAPS[0])[0]
+    spc = Spc(octree, [octree.shape[0]])
+    layers = conv_layers(dev)
+    n = int(spc.pyramids[0, 0, SPC_LEVEL])
+    x = torch.tensor(np.random.default_rng(CONV_SEED).normal(
+        size=(n, 16)).astype(np.float32), device=dev, requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, loss = conv_step(spc, layers, x, SPC_LEVEL)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check(tuple(out.shape) == (n, 32) and bool(torch.isfinite(out).all()),
+           'conv stack output shape, finite')
+    _check(all(bool(torch.isfinite(p.grad).all()) and p.grad.abs().max() > 0
+               for p in [x] + [p for m in layers for p in m.parameters()]),
+           'conv stack gradients finite, non-zero')
+    conv_card_vs_cpu(fv, dev)
+    dense_card_vs_cpu(spc, fv, dev)
+
+    fwd_ms = time_ms(lambda: conv_forward(spc, layers, x, SPC_LEVEL), 3)
+    step_ms = time_ms(lambda: conv_step(spc, layers, x, SPC_LEVEL), 3)
+    _, ins, _ = conv_forward(spc, layers, x, SPC_LEVEL)
+    pyr = spc.pyramids[0]
+    parts = []
+    for layer, (h, lv) in zip(layers, ins):
+        transpose = isinstance(layer, ConvTranspose3d)
+        out_lv = lv + layer.jump if transpose else lv - layer.jump
+        pts = unbatched_get_level_points(spc.point_hierarchies, pyr, out_lv)
+        kv = torch.as_tensor(layer.kernel_vectors, device=dev)
+        coords, _ = tap_coords(pts, kv, layer.jump, transpose)
+        pair_args = (spc.octrees, spc.exsum, pts, kv, layer.jump, lv,
+                     int(pyr[1, lv]), transpose)
+        pairs = tap_pairs(*pair_args)
+        h = h.detach()
+        parts.append(dict(
+            query=time_ms(lambda: unbatched_query(spc.octrees, spc.exsum,
+                                                  coords, lv), 3),
+            pairs=time_ms(lambda: tap_pairs(*pair_args), 3),
+            gather=time_ms(lambda: h[pairs[0]], 3),
+            products=time_ms(lambda: tap_products(
+                h, layer.weight.detach(), *pairs, pts.shape[0]), 3),
+            n_pairs=pairs[0].shape[0], K=kv.shape[0], n_out=pts.shape[0]))
+    print(f'[{card}] path B (Conv3d 16->32 3^3 -> Conv3d 32->64 2^3 jump 1 '
+          f'-> ConvTranspose3d 64->32 2^3 jump 1 over {n} level-{SPC_LEVEL} '
+          f'points, L2): forward {fwd_ms:.3f} ms, forward + backward '
+          f'{step_ms:.3f} ms, so backward {step_ms - fwd_ms:.3f} ms; peak '
+          f'device memory of a step {peak:.3f} GiB')
+    for layer, p in zip(('conv 3^3', 'conv 2^3 down', 'transpose 2^3 up'),
+                        parts):
+        print(f'[{card}]   {layer}: {p["n_pairs"]} live (tap, output) pairs '
+              f'of {p["K"] * p["n_out"]}; unbatched_query {p["query"]:.3f} '
+              f'ms, query + compaction {p["pairs"]:.3f} ms, gather '
+              f'{p["gather"]:.3f} ms, gather + per-tap matmul + index_add '
+              f'{p["products"]:.3f} ms')
+    idle = step_profile(lambda: conv_step(spc, layers, x, SPC_LEVEL), card)
+    return dict(step_ms=step_ms, fwd_ms=fwd_ms, peak=peak, idle=idle)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is '
@@ -1437,6 +1928,10 @@ def main():
     phase('15: config #4 (DefTet 256^2)')
     tetmesh(dev, card)
     phase('16: tetmesh ops and losses')
+    path_a_out = path_a(fv, dev, card)
+    phase('17: path A (camera -> K3 -> trilinear features -> integration)')
+    path_b(fv, dev, card)
+    phase('18: path B (sparse convolutions over the level-10 octree)')
 
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
     trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cu'
@@ -1453,9 +1948,14 @@ def main():
              **_bound(k2_b, k2_f), library_ms=None),
         dict(name='spc_trace_kernel', route='cuda', source=trace_src,
              replaces='kaolin_tpu/render/spc/raster.py:459',
-             launches=spc_launches, max_abs_err=k3_err,
+             launches=spc_launches + path_a_out['launches'],
+             path_launches={'spc_main': spc_launches,
+                            'path_a': path_a_out['launches']},
+             max_abs_err=max(k3_err, path_a_out['k3_err']),
              ms=ts['k3_ms'], plain_ms=ts['k3_plain_ms'],
-             **_bound(k3_b, k3_f), library_ms=None),
+             **_bound(k3_b, k3_f), library_ms=None,
+             pinhole_ms=path_a_out['k3_ms'],
+             pinhole_exit_ms=path_a_out['k3_exit_ms']),
     ]
     # the probes: `launches` counts their own entry point's run; none ran
     # on the DIB-R or SPC main paths (main_path_launches)

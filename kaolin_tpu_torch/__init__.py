@@ -19,7 +19,11 @@ slice 2, the SPC pipeline from a triangle mesh to a level-L octree
 DIB-R backend with the k-buffer soft mask, the OBJ importer
 (:mod:`kaolin_tpu_torch.io`) and :class:`~kaolin_tpu_torch.rep.SurfaceMesh`,
 the DefTet renderer (:mod:`kaolin_tpu_torch.render.mesh.deftet`) and the
-tetmesh ops, losses and marching tetrahedra.
+tetmesh ops, losses and marching tetrahedra; slice 7, the rest of the SPC
+ops (query, dense grids, dual, trinkets, trilinear interpolation), the
+sparse convolutions (:mod:`kaolin_tpu_torch.ops.spc.convolution`), the
+pointcloud and mesh voxel grids and the Camera API
+(:mod:`kaolin_tpu_torch.render.camera`).
 """
 
 __version__ = "0.1.0"

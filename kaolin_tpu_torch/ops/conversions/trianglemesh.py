@@ -1,7 +1,6 @@
-"""Triangle mesh -> SPC octree.
+"""Triangle mesh -> voxel grids and SPC octrees.
 
-Port of ``kaolin_tpu/ops/conversions/trianglemesh.py`` (the SPC builders;
-``trianglemeshes_to_voxelgrids`` is still to port).  The host builder
+Port of ``kaolin_tpu/ops/conversions/trianglemesh.py``.  The host builder
 :func:`unbatched_mesh_to_spc` is numpy in float64, as in the JAX package,
 and is the oracle of the device builder :func:`unbatched_mesh_to_spc_device`.
 """
@@ -10,12 +9,54 @@ import numpy as np
 import torch
 
 from kaolin_tpu_torch._device import entry_device
+from kaolin_tpu_torch.ops.conversions.pointcloud import (
+    _base_points_to_voxelgrids)
+from kaolin_tpu_torch.ops.mesh.trianglemesh import (
+    _unbatched_subdivide_vertices)
 from kaolin_tpu_torch.ops.spc.device import (mesh_to_spc_device,
                                              pack_octree_device)
 from kaolin_tpu_torch.ops.spc.points import (points_to_morton,
                                              unbatched_points_to_octree_np)
 
-__all__ = ['unbatched_mesh_to_spc', 'unbatched_mesh_to_spc_device']
+__all__ = ['trianglemeshes_to_voxelgrids', 'unbatched_mesh_to_spc',
+           'unbatched_mesh_to_spc_device']
+
+
+def trianglemeshes_to_voxelgrids(vertices, faces, resolution, origin=None,
+                                 scale=None, return_sparse=False,
+                                 device=None):
+    """Voxelize mesh surfaces: subdivide each mesh until its edges are
+    shorter than a voxel (host numpy), then mark the voxels of the vertices.
+
+    Args:
+        vertices: (B, V, 3).
+        faces: (F, 3) int.
+        resolution: grid resolution (int).
+        origin / scale: (B, 3) / (B,) normalization to [0, 1] (default:
+            the bounding box's minimum and its largest extent).
+        return_sparse: accepted; the grids are dense, as in the JAX package.
+        device: where the grids are made (default: the device of a tensor
+            ``vertices``, the card for a numpy one).
+
+    Returns:
+        (B, resolution, resolution, resolution) binary grids.
+    """
+    del return_sparse
+    if not isinstance(resolution, int):
+        raise TypeError(f"Expected resolution to be int "
+                        f"but got {type(resolution)}.")
+    vertices = torch.as_tensor(vertices, device=entry_device(device,
+                                                             vertices))
+    if origin is None:
+        origin = vertices.amin(dim=1)
+    if scale is None:
+        scale = (vertices.amax(dim=1) - origin).amax(dim=1)
+    origin = torch.as_tensor(origin, device=vertices.device)
+    scale = torch.as_tensor(scale, device=vertices.device)
+    norm_vertices = (vertices - origin[:, None]) / scale.reshape(-1, 1, 1)
+    return torch.stack([_base_points_to_voxelgrids(
+        _unbatched_subdivide_vertices(v, faces, resolution)[None],
+        resolution)[0] for v in norm_vertices])
 
 
 def unbatched_mesh_to_spc_device(face_vertices, level, cap=2 ** 21,

@@ -1,7 +1,9 @@
-"""SPC point utilities: quantization, morton codes, octree from points.
+"""SPC point utilities: quantization, morton codes, octree from points,
+corners, trilinear interpolation and dense octrees.
 
-Port of ``kaolin_tpu/ops/spc/points.py`` (the part on the SPC trace path;
-trilinear interpolation, corners and dense octrees are still to port).
+Port of ``kaolin_tpu/ops/spc/points.py``.  Interpolation is plain torch and
+differentiable with respect to the coords and the corner features through
+autograd (the JAX package differentiates its jnp the same way).
 
 Conventions (``kaolin/csrc/spc_math.h:93-121``): the morton code
 interleaves (x, y, z) with x in bit ``3i+2``, y in ``3i+1`` and z in ``3i``,
@@ -17,7 +19,14 @@ from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.ops.spc.device import morton_i64
 
 __all__ = ['quantize_points', 'points_to_morton', 'morton_to_points',
-           'unbatched_points_to_octree', 'unbatched_points_to_octree_np']
+           'unbatched_points_to_octree', 'unbatched_points_to_octree_np',
+           'points_to_corners', 'coords_to_trilinear',
+           'coords_to_trilinear_coeffs', 'unbatched_interpolate_trilinear',
+           'create_dense_spc']
+
+# corner j of a voxel, and child octant j of a parent, sits at this offset
+CORNERS = torch.tensor([[(j >> 2) & 1, (j >> 1) & 1, j & 1]
+                        for j in range(8)], dtype=torch.int32)
 
 
 def quantize_points(x, level):
@@ -91,3 +100,72 @@ def unbatched_points_to_octree_np(points, level, sorted=False):
         morton = uniq
     return np.concatenate(levels[::-1]) if levels else \
         np.zeros(0, dtype=np.uint8)
+
+
+def points_to_corners(points, device=None):
+    """The 8 corners of each point's voxel: (..., 3) integer coords ->
+    (..., 8, 3), same dtype, on ``device`` (default: the points' device if
+    a tensor, else the card); corner j is offset by
+    ``(j>>2 & 1, j>>1 & 1, j & 1)``."""
+    points = torch.as_tensor(points, device=entry_device(device, points))
+    return points[..., None, :] + CORNERS.to(points.device, points.dtype)
+
+
+def coords_to_trilinear(coords, points, level):
+    """Deprecated alias of :func:`coords_to_trilinear_coeffs`."""
+    import warnings
+    warnings.warn("coords_to_trilinear is deprecated, "
+                  "please use coords_to_trilinear_coeffs instead",
+                  DeprecationWarning)
+    return coords_to_trilinear_coeffs(coords, points, level)
+
+
+def coords_to_trilinear_coeffs(coords, points, level):
+    """Trilinear coefficients of (..., 3) float coords in [-1, 1] with
+    respect to their voxel, given by (..., 3) integer ``points`` at
+    ``level``: (..., 8), coefficient j for corner j of
+    :func:`points_to_corners`."""
+    x = (coords * 0.5 + 0.5) * (2 ** level) - points.to(coords.dtype)
+    _x = 1.0 - x
+    cx, cy, cz = x[..., 0], x[..., 1], x[..., 2]
+    _cx, _cy, _cz = _x[..., 0], _x[..., 1], _x[..., 2]
+    return torch.stack([_cx * _cy * _cz, _cx * _cy * cz, _cx * cy * _cz,
+                        _cx * cy * cz, cx * _cy * _cz, cx * _cy * cz,
+                        cx * cy * _cz, cx * cy * cz], dim=-1)
+
+
+def unbatched_interpolate_trilinear(coords, pidx, point_hierarchy, trinkets,
+                                    feats, level):
+    """Trilinearly interpolate corner features at sample coords.
+
+    Args:
+        coords: (N, k, 3) float coords in [-1, 1].
+        pidx: (N,) int indices into ``point_hierarchy`` (global, as
+            :func:`~kaolin_tpu_torch.ops.spc.unbatched_query` and the ray
+            traces return them); -1 entries give zeros.
+        point_hierarchy: (num_points, 3) int coords.
+        trinkets: (num_points, 8) int corner indices, level-local: they
+            index the ``level`` slice of the dual hierarchy, which is what
+            ``feats`` holds.
+        feats: (num_corners, D) corner features of that slice.
+        level: octree level of the samples.
+
+    Returns:
+        (N, k, D) interpolated features.
+    """
+    valid = pidx >= 0
+    safe = torch.clamp(pidx, min=0).long()
+    coeffs = coords_to_trilinear_coeffs(
+        coords, point_hierarchy[safe][:, None, :], level)      # (N, k, 8)
+    corner_feats = feats[trinkets[safe].long()]                  # (N, 8, D)
+    out = torch.einsum('nkc,ncd->nkd', coeffs.to(feats.dtype), corner_feats)
+    return torch.where(valid[:, None, None], out, 0.)
+
+
+def create_dense_spc(level, device=None):
+    """A fully dense octree of ``level``: (octree uint8 on ``device``
+    (default: the card), lengths (1,) int32 CPU tensor)."""
+    num_bytes = sum(8 ** lv for lv in range(level))
+    octree = torch.full((num_bytes,), 255, dtype=torch.uint8,
+                        device=entry_device(device))
+    return octree, torch.tensor([num_bytes], dtype=torch.int32)

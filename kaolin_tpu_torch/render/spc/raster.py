@@ -445,6 +445,14 @@ def _block_order(height, width, bh, bw):
     return perm, inv
 
 
+def grid_order(height, width, rays_per_tile):
+    """The ray order that ``grid_shape=(height, width)`` traces in: the
+    row-major pixels grouped into compact blocks of about ``rays_per_tile``
+    (:func:`_block_order`); (perm, inv_perm) host numpy index arrays."""
+    bw = max(1, min(width, int(np.sqrt(rays_per_tile))))
+    return _block_order(height, width, max(1, rays_per_tile // bw), bw)
+
+
 def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
                                 origin, direction, level,
                                 rays_per_tile=16, max_tile_voxels=1024,
@@ -505,9 +513,7 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
     if grid_shape is not None:
         h, w = grid_shape
         assert h * w == N, (grid_shape, N)
-        bw = max(1, min(w, int(np.sqrt(RT))))
-        bh = max(1, RT // bw)
-        perm, inv = _block_order(h, w, bh, bw)
+        perm, inv = grid_order(h, w, RT)
         origin = origin[torch.as_tensor(perm, device=device)]
         direction = direction[torch.as_tensor(perm, device=device)]
 

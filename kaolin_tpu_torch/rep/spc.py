@@ -73,6 +73,25 @@ class Spc:
         return self._point_hierarchies
 
     @classmethod
+    def from_features(cls, feature_grids, masks=None, device=None):
+        """Build from dense (B, C, X, Y, Z) feature grids (see
+        :func:`~kaolin_tpu_torch.ops.spc.feature_grids_to_spc`), with the
+        occupied voxels' features as ``features``."""
+        from kaolin_tpu_torch.ops.spc import feature_grids_to_spc
+        octrees, lengths, features = feature_grids_to_spc(
+            feature_grids, masks, device=device)
+        return cls(octrees=octrees, lengths=lengths, features=features)
+
+    @classmethod
+    def make_dense(cls, level, batch_size=1, device=None):
+        """A batch of fully dense octrees of ``level`` on ``device``
+        (default: the card)."""
+        from kaolin_tpu_torch.ops.spc import create_dense_spc
+        octree, length = create_dense_spc(level, device=device)
+        return cls(octrees=octree.repeat(batch_size),
+                   lengths=length.repeat(batch_size))
+
+    @classmethod
     def from_list(cls, octrees_list, device=None):
         """Build from a list of single octree byte tensors or arrays, on
         ``device`` (default: the device of the first tensor, the card for
@@ -99,6 +118,14 @@ class Spc:
         if keys is None:
             keys = self.KEYS
         return {k: getattr(self, k) for k in keys}
+
+    def to_dense(self, input=None, level=-1):
+        """Densify features (default: ``self.features``) into a
+        (B, C, 2^l, 2^l, 2^l) grid (see :func:`~kaolin_tpu_torch.ops.spc.
+        to_dense`)."""
+        from kaolin_tpu_torch.ops.spc import to_dense
+        feats = input if input is not None else self.features
+        return to_dense(self.point_hierarchies, self.pyramids, feats, level)
 
     def __repr__(self):
         return (f"Spc of {len(self)} octrees, "

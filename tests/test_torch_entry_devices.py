@@ -20,7 +20,21 @@ from kaolin_tpu_torch.ops.conversions.trianglemesh import (
 from kaolin_tpu_torch.ops.spc import (generate_points, morton_to_points,
                                       points_to_morton, scan_octrees,
                                       unbatched_points_to_octree)
-from kaolin_tpu_torch.render.camera import generate_perspective_projection
+from kaolin_tpu_torch.ops.conversions import (pointclouds_to_voxelgrids,
+                                              trianglemeshes_to_voxelgrids,
+                                              unbatched_pointcloud_to_spc)
+from kaolin_tpu_torch.ops.spc import (Conv3d, ConvTranspose3d,
+                                      create_dense_spc, feature_grids_to_spc,
+                                      from_jax_params, points_to_corners,
+                                      unbatched_make_dual,
+                                      unbatched_make_trinkets,
+                                      unbatched_query)
+from kaolin_tpu_torch.render.camera import (Camera, CameraExtrinsics,
+                                            OrthographicIntrinsics,
+                                            PinholeIntrinsics,
+                                            blender_coords,
+                                            generate_perspective_projection,
+                                            opengl_coords)
 from kaolin_tpu_torch.render.mesh.rasterization import pixel_coords
 from kaolin_tpu_torch.render.spc import (generate_primary_rays,
                                          generate_shadow_rays,
@@ -74,6 +88,29 @@ def _tets(device=None):
     return v[None], t, np.linalg.norm(v, axis=-1)[None] - 0.5
 
 
+def _dual(device=None):
+    _, ph, pyr, _, _, _, _ = _spc_numpy()
+    return unbatched_make_dual(ph, pyr, device=device)
+
+
+def _trinkets(device=None):
+    _, ph, pyr, _, _, _, _ = _spc_numpy()
+    dual, pyr_dual = unbatched_make_dual(ph, pyr, device='cpu')
+    return unbatched_make_trinkets(ph, pyr, dual.numpy(), pyr_dual,
+                                   device=device)[0]
+
+
+def _query(device=None):
+    octree, ph, _, exsum, _, _, _ = _spc_numpy()
+    return unbatched_query(octree, exsum, ph[-5:], LEVEL, device=device)
+
+
+_LOOKAT = dict(eye=np.array([0., 1., 3.]), at=np.zeros(3),
+               up=np.array([0., 1., 0.]))
+_GRID = np.zeros((1, 2, 4, 4, 4), np.float32)
+_GRID[0, :, 1, 2, 3] = 1.
+
+
 ENTRY = {
     'import_mesh': _import_mesh,
     'marching_tetrahedra': lambda device=None: marching_tetrahedra(
@@ -112,6 +149,52 @@ ENTRY = {
                                    device=device).octrees,
     'Spc.from_list': lambda device=None: Spc.from_list(
         [np.array([1, 1], np.uint8)], device=device).octrees,
+    'Spc.make_dense': lambda device=None: Spc.make_dense(
+        2, device=device).octrees,
+    'Spc.from_features': lambda device=None: Spc.from_features(
+        _GRID, device=device).features,
+    'points_to_corners': lambda device=None: points_to_corners(
+        np.array([[1, 2, 3]]), device=device),
+    'create_dense_spc': lambda device=None: create_dense_spc(
+        2, device=device)[0],
+    'unbatched_query': _query,
+    'feature_grids_to_spc': lambda device=None: feature_grids_to_spc(
+        _GRID, device=device)[0],
+    'unbatched_make_dual': lambda device=None: _dual(device)[0],
+    'unbatched_make_trinkets': _trinkets,
+    'Conv3d': lambda device=None: Conv3d(2, 3, np.zeros((1, 3)),
+                                         device=device).weight,
+    'ConvTranspose3d': lambda device=None: ConvTranspose3d(
+        2, 3, np.zeros((1, 3)), device=device).weight,
+    'from_jax_params': lambda device=None: from_jax_params(
+        {'weight': np.ones((1, 2, 3))}, device=device)['weight'],
+    'pointclouds_to_voxelgrids': lambda device=None:
+        pointclouds_to_voxelgrids(np.random.default_rng(0).random(
+            (1, 10, 3)), 4, device=device),
+    'unbatched_pointcloud_to_spc': lambda device=None:
+        unbatched_pointcloud_to_spc(np.zeros((2, 3)), 2,
+                                    device=device).octrees,
+    'trianglemeshes_to_voxelgrids': lambda device=None:
+        trianglemeshes_to_voxelgrids(_Mesh.vertices[None], uv_sphere(8, 5)
+                                     .faces, 4, device=device),
+    'blender_coords': lambda device=None: blender_coords(device=device),
+    'opengl_coords': lambda device=None: opengl_coords(device=device),
+    'CameraExtrinsics.from_lookat': lambda device=None:
+        CameraExtrinsics.from_lookat(**_LOOKAT, device=device).params,
+    'CameraExtrinsics.from_camera_pose': lambda device=None:
+        CameraExtrinsics.from_camera_pose(np.zeros(3), np.eye(3),
+                                          device=device).params,
+    'CameraExtrinsics.from_view_matrix': lambda device=None:
+        CameraExtrinsics.from_view_matrix(np.eye(4), device=device).params,
+    'PinholeIntrinsics.from_fov': lambda device=None:
+        PinholeIntrinsics.from_fov(4, 4, 0.8, device=device).params,
+    'PinholeIntrinsics.from_focal': lambda device=None:
+        PinholeIntrinsics.from_focal(4, 4, 3., device=device).params,
+    'OrthographicIntrinsics.from_frustum': lambda device=None:
+        OrthographicIntrinsics.from_frustum(4, 4, device=device).params,
+    'Camera.from_args': lambda device=None: Camera.from_args(
+        **_LOOKAT, fov=0.8, width=4, height=4,
+        device=device).generate_rays()[1],
 }
 
 
