@@ -111,6 +111,44 @@ sphere's level-10 octree:
     the pair compaction, the gather and the per-tap matmul, peak memory,
     the step on the card's timeline.
 
+Lighting, mesh and point-cloud metrics, sampling, ``check_sign``, the
+voxel-grid ops and marching cubes (plain PyTorch but K1; the JAX package
+computes them without a Pallas kernel):
+
+19. path C, SG light recovery (DIB-R++, ``examples/sg_lighting_demo.py``
+    at full size): the DIB-R cell's sphere with a 256^2 texture whose first
+    64 rows are black, 4 pinhole cameras (``Camera.from_args``, 70 degree
+    fov) at 512^2; ``rasterize(..., backend='fused')`` once per view (K1,
+    its launches counted) -> nearest ``texture_mapping`` ->
+    ``sg_diffuse_inner_product`` + ``sg_warp_specular_term`` (roughness
+    0.3) over 32 lobes -> MSE on the covered pixels against a target from
+    ground-truth lobes -> backward to amplitude, direction angles and
+    sharpness -> 5 Adam steps (the loss falls); K1 against its plain
+    version on path C's own per-view inputs at 512^2 (no soft mask), with
+    its time there; step 0 at 128^2, one view, against the CPU; times and
+    stage split, kernels per step, idle share, peak memory;
+20. path D, DMTet chamfer fit (``examples/dmtet_demo.py`` at full size):
+    ``tet_grid(64)`` of [-0.5, 0.5]^3 (1,572,864 tets) with a sphere SDF of
+    radius 0.25 -> ``marching_tetrahedra`` -> ``sample_points`` (50,000) ->
+    ``chamfer_distance`` to 100,000 points of an ellipsoid +
+    0.1 x the mean squared ``uniform_laplacian_smoothing`` displacement ->
+    backward to the SDF -> 5 Adam steps (the loss falls);
+    ``average_edge_length`` and ``point_to_mesh_distance`` of 20,000 target
+    points to the final surface; step 0 at ``tet_grid(16)`` against the CPU
+    with the same face choices, u and v; the step's stages timed by CUDA
+    events inside the same three steps, kernels per step, idle share, peak
+    memory;
+21. path E, occupancy evaluation: ``check_sign`` of the 128^3 cell centres
+    against the sphere at radius 0.45 (every point farther than 1e-3 from
+    the sphere decided as |p| < 0.45), ``downsample``, ``extract_surface``,
+    ``fill`` (equal to the solid), ``extract_odms`` -> ``project_odms``,
+    marching cubes and cubic meshes, ``iou`` against the filled
+    ``trianglemeshes_to_voxelgrids``, ``chamfer_distance``, ``f_score`` and
+    ``point_to_mesh_distance`` between 50,000 points sampled on the
+    marching-cubes mesh and on the sphere; ``check_sign`` and marching
+    cubes at 32^3 against the CPU; stage times, kernels, idle share, peak
+    memory.
+
 Each phase prints its seconds, and the script its total.
 
 Every kernel of the ``kernels`` line carries its time, its plain
@@ -166,6 +204,24 @@ from kaolin_tpu_torch.render.spc.raster import (
     _beam_bounds, _beam_chunk_test, _block_order, _pad_rays,
     build_cell_table, grid_order, trace_inputs, unbatched_raytrace_coherent)
 from kaolin_tpu_torch.rep import Spc
+from kaolin_tpu_torch._clip import clip
+from kaolin_tpu_torch.metrics.pointcloud import chamfer_distance, f_score
+from kaolin_tpu_torch.metrics.trianglemesh import (
+    average_edge_length, point_to_mesh_distance, uniform_laplacian_smoothing)
+from kaolin_tpu_torch.metrics.voxelgrid import iou
+from kaolin_tpu_torch.ops.conversions.voxelgrid import (
+    voxelgrids_to_cubic_meshes, voxelgrids_to_trianglemeshes)
+from kaolin_tpu_torch.ops.coords import spherical2cartesian
+from kaolin_tpu_torch.ops.mesh import (check_sign, index_vertices_by_faces,
+                                       sample_points)
+from kaolin_tpu_torch.ops.mesh.trianglemesh import (
+    _base_sample_points_selected_faces)
+from kaolin_tpu_torch.ops.voxelgrid import (downsample, extract_odms,
+                                            extract_surface, fill,
+                                            project_odms)
+from kaolin_tpu_torch.render.lighting import (sg_diffuse_inner_product,
+                                              sg_warp_specular_term)
+from kaolin_tpu_torch.render.mesh import rasterize, texture_mapping
 from kaolin_tpu_torch.utils import measure
 from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
 from kaolin_tpu_torch.utils.testing import (camera_grid, punch_cell_rows,
@@ -280,6 +336,46 @@ CONV_OUT_REL = 1e-5
 CONV_GRAD_REL = 1e-4        # the weight gradients sum over every point
 DENSE_LEVEL = 7
 VOXEL_RES = 128
+# path C (phase 19): SG light recovery on the DIB-R cell's sphere
+IMAGE_C = 512
+SG_LOBES = 32
+SG_FOV = math.radians(70.)
+SG_EYE_DIST = 2.2           # the unit sphere fills ~40 % of a 70 deg view
+SG_ELEVATION = 0.35
+SG_ROUGHNESS = 0.3
+SG_SPEC = 0.04
+SG_LR = 5e-2
+SG_SEED = 21
+SG_STEP0 = dict(image=128, views=1)
+SG_MAP_ATOL = 1e-5          # uv / normal / position maps, card vs CPU
+SG_LOSS_RTOL = 1e-5
+SG_GRAD_REL = 1e-4
+# path D (phase 20): DMTet chamfer fit
+DMTET_GRID = 64             # 1,572,864 tets: phase 16's count, no subdivision
+DMTET_RADIUS = 0.25
+DMTET_ELLIPSOID = (0.35, 0.25, 0.30)
+DMTET_ELLIPSOID_MESH = (200, 101)   # 40,000 faces
+DMTET_TARGET = 100_000
+DMTET_SAMPLES = 50_000
+DMTET_LAP_W = 0.1
+DMTET_LR = 5e-3
+DMTET_SEED = 22
+DMTET_P2M = 20_000
+DMTET_STEP0_GRID = 16
+DMTET_STEP0_SAMPLES = 4096
+DMTET_STEP0_TARGET = 10_000
+DMTET_LOSS_RTOL = 1e-5
+DMTET_GRAD_REL = 1e-4
+# path E (phase 21): occupancy evaluation
+OCC_RES = 128
+OCC_RADIUS = 0.45
+OCC_PARITY_RES = 32
+OCC_SHELL = 1e-3            # the 10,000-face sphere lies within 4.4e-4 of
+#                             the true one: farther points are decided
+OCC_SAMPLES = 50_000
+OCC_FSCORE_RADIUS = 0.02    # 2.6 voxels; 50,000 samples lie ~0.007 apart
+OCC_SEED = 23
+OCC_IOU_MIN = 0.9           # the vertex voxelization rounds outwards
 
 
 def _bound(nbytes, flops):
@@ -1853,6 +1949,583 @@ def path_b(fv, dev, card):
     return dict(step_ms=step_ms, fwd_ms=fwd_ms, peak=peak, idle=idle)
 
 
+# ---------------------------------------------------------------------------
+# Path C: SG light recovery (DIB-R++): fixed geometry rasterized once per
+# view through K1, SG diffuse + GGX specular over 32 lobes, masked MSE, Adam
+
+def sg_cameras(size, views, dev):
+    """``views`` pinhole cameras around the unit sphere, 70 degree fov."""
+    az = np.arange(views) * (2. * np.pi / views) + 0.3
+    el = np.full(views, SG_ELEVATION)
+    eye = SG_EYE_DIST * np.stack([np.cos(el) * np.sin(az), np.sin(el),
+                                  np.cos(el) * np.cos(az)], -1)
+    return Camera.from_args(
+        eye=torch.tensor(eye, dtype=torch.float32, device=dev),
+        at=torch.zeros((views, 3), device=dev),
+        up=torch.tensor([[0., 1., 0.]] * views, device=dev), fov=SG_FOV,
+        width=size, height=size, device=dev), torch.tensor(
+            eye, dtype=torch.float32, device=dev)
+
+
+def sg_texture():
+    """(1, 3, 256, 256) seeded texture; its first 64 rows are black."""
+    tex = np.random.default_rng(SG_SEED).random(
+        (1, 3, TEXTURE_RES, TEXTURE_RES), dtype=np.float32)
+    tex[:, :, :TEXTURE_RES // 4] = 0.
+    return tex
+
+
+def sg_faces(size, views, dev):
+    """uv_sphere(*SPHERE) seen by the path C cameras: per-face camera-space z
+    (views, F, 3) and image coordinates (views, F, 3, 2), the face uvs and
+    world positions, and the eyes."""
+    s = uv_sphere(*SPHERE)
+    cam, eye = sg_cameras(size, views, dev)
+    v = torch.as_tensor(s.vertices[None], device=dev)
+    faces = torch.as_tensor(s.faces, device=dev)
+    fw = index_vertices_by_faces(v, faces)
+    fuv = torch.as_tensor(s.uvs[s.face_uvs_idx][None], device=dev)
+    vc = cam.extrinsics.transform(v)
+    vi = cam.intrinsics.transform(vc)[..., :2]
+    fvz = index_vertices_by_faces(vc, faces)[..., -1]
+    fvi = index_vertices_by_faces(vi, faces)
+    return fvz, fvi, fuv, fw, eye
+
+
+def sg_geometry(size, views, dev):
+    """The fixed geometry: ``rasterize(..., backend='fused')`` (K1) once per
+    view of uv_sphere(*SPHERE), features uvs, normals and world positions;
+    then the covered pixels' normal, view direction and nearest albedo.
+    Returns a dict of the covered pixels' inputs and the face ids."""
+    fvz, fvi, fuv, fw, eye = sg_faces(size, views, dev)
+    maps, fids = [], []
+    for b in range(views):
+        m, fid = rasterize(size, size, fvz[b:b + 1], fvi[b:b + 1],
+                           [fuv, fw, fw], backend='fused')
+        maps.append(torch.cat(m, -1))
+        fids.append(fid)
+    maps, fid = torch.cat(maps), torch.cat(fids)
+    return sg_pixels(maps, fid, eye, torch.as_tensor(sg_texture(),
+                                                     device=dev))
+
+
+def sg_k1_vs_plain(dev, card):
+    """K1 against its plain version on path C's own inputs: for each view,
+    the build_face_tiles that ``rasterize(..., backend='fused')`` makes at
+    IMAGE_C^2 (rasterize's defaults, no soft mask).  Returns the max
+    |dprod| and K1's time over the views (one launch each)."""
+    fvz, fvi, _, _, _ = sg_faces(IMAGE_C, VIEWS, dev)
+    fids_k, fids_p, dprod, k_ms, p_ms = [], [], 0., 0., 0.
+    for b in range(VIEWS):
+        with torch.no_grad():
+            vt, tr, _, cbb, _, _ = FU.build_face_tiles(
+                fvz[b:b + 1], fvi[b:b + 1] * MULT,
+                torch.ones((1, fvz.shape[1]), dtype=torch.bool, device=dev),
+                IMAGE_C, IMAGE_C, MULT, BOXLEN * MULT)
+        args = (vt.float().contiguous(), tr, cbb.float().contiguous(),
+                IMAGE_C, IMAGE_C, MULT, EPS, SIGMAINV, False)
+        fid_k, prod_k = FU._fused_forward_cuda(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fid_p, prod_p = FU._fused_forward_torch(*args)
+        end.record()
+        torch.cuda.synchronize()
+        p_ms += start.elapsed_time(end)
+        k_ms += time_ms(lambda: FU._fused_forward_cuda(*args), 20)
+        dprod = max(dprod, (prod_k - prod_p).abs().max().item())
+        fids_k.append(fid_k)
+        fids_p.append(fid_p)
+    fid_k, fid_p = torch.cat(fids_k), torch.cat(fids_p)
+    mismatch = (fid_k != fid_p).float().mean().item()
+    print(f'[{card}] K1 vs plain on path C\'s inputs ({VIEWS} views, '
+          f'{IMAGE_C}x{IMAGE_C}, no soft mask): face_idx mismatch share '
+          f'{mismatch:.3e} (limit {K1_FID_MISMATCH_MAX:g}), max|dprod| '
+          f'{dprod:.3e} (limit {K1_PROD_MAX:g}); covered pixels '
+          f'{(fid_k >= 0).float().mean().item():.4f}; K1 {k_ms:.4f} ms for '
+          f'the {VIEWS} launches, plain {p_ms:.3f} ms (one run)')
+    _check(mismatch <= K1_FID_MISMATCH_MAX,
+           'K1 face_idx mismatch share on path C')
+    _check(dprod <= K1_PROD_MAX, 'K1 max |dprod| on path C')
+    return dprod, k_ms, p_ms
+
+
+def sg_pixels(maps, fid, eye, texture):
+    """Covered pixels of the (B, H, W, 2 + 3 + 3) uv/normal/position maps:
+    unit normals, unit view directions to the eye, nearest albedo."""
+    cov = fid.reshape(-1) >= 0
+    view_of = torch.arange(fid.shape[0], device=fid.device) \
+        .repeat_interleave(fid[0].numel())[cov]
+    px = maps.reshape(-1, maps.shape[-1])[cov]
+    nrm = px[:, 2:5] / clip(torch.linalg.norm(px[:, 2:5], dim=-1,
+                                              keepdim=True), 1e-12)
+    view = eye[view_of] - px[:, 5:8]
+    view = view / torch.linalg.norm(view, dim=-1, keepdim=True)
+    albedo = texture_mapping(px[None, :, 0:2], texture, mode='nearest')[0]
+    n = nrm.shape[0]
+    return dict(fid=fid, maps=maps, normal=nrm, view=view, albedo=albedo,
+                roughness=torch.full((n,), SG_ROUGHNESS, device=fid.device),
+                spec=torch.full((n, 3), SG_SPEC, device=fid.device))
+
+
+def sg_lobes(seed):
+    """32 SG lobes: amplitude (32, 3), azimuth, elevation, sharpness."""
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0.5, 2., (SG_LOBES, 3)).astype(np.float32),
+            rng.uniform(0., 2. * np.pi, SG_LOBES).astype(np.float32),
+            rng.uniform(-1., 1.3, SG_LOBES).astype(np.float32),
+            rng.uniform(5., 30., SG_LOBES).astype(np.float32)]
+
+
+def sg_shade(px, amp, az, el, sharp):
+    """SG diffuse (inner product) + GGX specular of the covered pixels."""
+    d = torch.stack(spherical2cartesian(az, el), dim=-1)
+    return (sg_diffuse_inner_product(amp, d, sharp, px['normal'],
+                                     px['albedo'])
+            + sg_warp_specular_term(amp, d, sharp, px['normal'],
+                                    px['roughness'], px['view'], px['spec']))
+
+
+def sg_step(px, params, target):
+    """shade -> masked MSE -> backward; returns the loss."""
+    for p in params:
+        p.grad = None
+    loss = torch.mean((sg_shade(px, *params) - target) ** 2)
+    loss.backward()
+    return loss
+
+
+def sg_start(dev):
+    """The trained lobes: the ground truth's, perturbed (leaf tensors)."""
+    gt = sg_lobes(SG_SEED + 1)
+    rng = np.random.default_rng(SG_SEED + 2)
+    start = [gt[0] * rng.uniform(0.5, 1.5, gt[0].shape),
+             gt[1] + rng.normal(0., 0.3, SG_LOBES),
+             gt[2] + rng.normal(0., 0.2, SG_LOBES),
+             gt[3] * rng.uniform(0.7, 1.3, SG_LOBES)]
+    return gt, [torch.tensor(x.astype(np.float32), device=dev,
+                             requires_grad=True) for x in start]
+
+
+def sg_step0(dev):
+    """Step 0 at SG_STEP0 on the card against the CPU: the geometry on each
+    (face ids within K1's mismatch limit, maps equal where they agree), then
+    the shading step on the card's pixels on both devices."""
+    size, views = SG_STEP0['image'], SG_STEP0['views']
+    g = sg_geometry(size, views, dev)
+    c = sg_geometry(size, views, 'cpu')
+    mism = (g['fid'].cpu() != c['fid']).float().mean().item()
+    same = (g['fid'].cpu() == c['fid']).reshape(-1) & (c['fid'].reshape(-1)
+                                                       >= 0)
+    merr = (g['maps'].cpu().reshape(-1, 8)[same]
+            - c['maps'].reshape(-1, 8)[same]).abs().max().item()
+    _check(mism <= K1_FID_MISMATCH_MAX, 'path C step 0: face ids, card vs '
+           'CPU')
+    _check(merr <= SG_MAP_ATOL, 'path C step 0: uv/normal/position maps')
+    gt, _ = sg_start('cpu')
+    res = {}
+    for where in (dev, 'cpu'):
+        px = {k: v.to(where) for k, v in g.items()}
+        target = sg_shade(px, *[torch.as_tensor(x, device=where)
+                                for x in gt])
+        params = sg_start(where)[1]
+        loss = sg_step(px, params, target)
+        res[str(where)] = (loss.item(), [p.grad.cpu() for p in params])
+    (lg, gg), (lc, gc) = res[str(dev)], res['cpu']
+    rel = abs(lg - lc) / abs(lc)
+    grel = max(_close_grads(a, b, f'path C step 0: d/d{n}') for a, b, n in
+               zip(gg, gc, ('amplitude', 'azimuth', 'elevation',
+                            'sharpness')))
+    print(f'path C step 0 ({views} view, {size}x{size}, '
+          f'{g["normal"].shape[0]} covered pixels): face ids card vs CPU '
+          f'mismatch share {mism:.2e}, maps max|d| {merr:.2e}; loss '
+          f'{lg:.7f} vs {lc:.7f} (rel {rel:.2e}, limit {SG_LOSS_RTOL:g}); '
+          f'gradients max|d|/max|g| {grel:.2e} (limit {SG_GRAD_REL:g})')
+    _check(rel <= SG_LOSS_RTOL, 'path C step 0: loss card vs CPU')
+    _check(grel <= SG_GRAD_REL, 'path C step 0: gradients card vs CPU')
+
+
+def path_c(dev, card):
+    """Phase 19: path C through the entry points at 512^2, 4 views, 32
+    lobes: the geometry (K1 once per view, launches counted), the target
+    from the ground-truth lobes, 5 Adam steps; step 0 against the CPU;
+    times, stage split, kernels per step, idle share, peak memory."""
+    torch.cuda.synchronize()
+    for k in FU.LAUNCHES:
+        FU.LAUNCHES[k] = 0
+    px = sg_geometry(IMAGE_C, VIEWS, dev)
+    gt, params = sg_start(dev)
+    with torch.no_grad():
+        target = sg_shade(px, *[torch.as_tensor(x, device=dev) for x in gt])
+    opt = torch.optim.Adam(params, lr=SG_LR)
+    losses = []
+    for _ in range(STEPS):
+        losses.append(sg_step(px, params, target).item())
+        opt.step()
+    torch.cuda.synchronize()
+    launches = FU.LAUNCHES['fwd']
+    n = px['normal'].shape[0]
+    print(f'path C scene: uv_sphere{SPHERE} (the DIB-R cell\'s sphere), '
+          f'{VIEWS} pinhole cameras '
+          f'{IMAGE_C}x{IMAGE_C}, 70 deg fov, 256^2 texture with black rows; '
+          f'{n} covered pixels ({n / (VIEWS * IMAGE_C ** 2):.4f}), '
+          f'{SG_LOBES} lobes; {STEPS} Adam steps (lr {SG_LR:g}): MSE '
+          + ', '.join(f'{x:.7f}' for x in losses)
+          + f'; K1 launches {launches} (K2 {FU.LAUNCHES["bwd"]})')
+    _check(launches == VIEWS, 'K1 launched once per view on path C')
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           'path C: the loss falls')
+    _check(all(bool(torch.isfinite(p).all()) for p in params),
+           'path C: lobes finite')
+    k1_err, k1_ms, k1_plain_ms = sg_k1_vs_plain(dev, card)
+    sg_step0(dev)
+
+    step_ms = time_ms(lambda: sg_step(px, params, target), 3)
+    geo_ms = time_ms(lambda: sg_geometry(IMAGE_C, VIEWS, dev), 3)
+    d = torch.stack(spherical2cartesian(params[1], params[2]), -1).detach()
+    a, s_ = params[0].detach(), params[3].detach()
+    diff_ms = time_ms(lambda: sg_diffuse_inner_product(
+        a, d, s_, px['normal'], px['albedo']), 3)
+    spec_ms = time_ms(lambda: sg_warp_specular_term(
+        a, d, s_, px['normal'], px['roughness'], px['view'], px['spec']), 3)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: torch.mean(
+            (sg_shade(px, *params) - target) ** 2), 3)
+    torch.cuda.reset_peak_memory_stats()
+    sg_step(px, params, target)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[{card}] path C step (shade {n} pixels x {SG_LOBES} lobes -> '
+          f'MSE -> backward): {step_ms:.3f} ms; forward {fwd_ms:.3f} ms '
+          f'(diffuse {diff_ms:.3f}, specular {spec_ms:.3f}), so backward '
+          f'{step_ms - fwd_ms:.3f} ms; the geometry, once per run ({VIEWS} '
+          f'rasterizations through K1 + pixel gathers) {geo_ms:.3f} ms; '
+          f'peak device memory of a step {peak:.3f} GiB')
+    idle = step_profile(lambda: sg_step(px, params, target), card)
+    return dict(launches=launches, step_ms=step_ms, idle=idle, peak=peak,
+                k1_err=k1_err, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms)
+
+
+# ---------------------------------------------------------------------------
+# Path D: DMTet chamfer fit: marching tetrahedra -> sample_points ->
+# chamfer to an ellipsoid's points + uniform-Laplacian term -> Adam on the SDF
+
+def dmtet_scene(n, dev):
+    """tet_grid(n) of [-0.5, 0.5]^3, the sphere SDF of radius DMTET_RADIUS,
+    and DMTET_TARGET points sampled on the ellipsoid."""
+    v, tets = tet_grid(n, -0.5, 0.5)
+    sdf = (np.linalg.norm(v, axis=-1) - DMTET_RADIUS).astype(np.float32)
+    e = uv_sphere(*DMTET_ELLIPSOID_MESH)
+    target, _ = sample_points(
+        (e.vertices * DMTET_ELLIPSOID).astype(np.float32)[None], e.faces,
+        DMTET_TARGET, generator=torch.Generator().manual_seed(DMTET_SEED),
+        device='cpu')                   # the same points on every device
+    return dict(v=torch.as_tensor(v[None], device=dev), tets=tets,
+                sdf=torch.tensor(sdf[None], device=dev),
+                target=target.to(dev))
+
+
+def dmtet_loss(scene, sdf, draw, mark=lambda: None):
+    """marching_tetrahedra -> points on the surface (``draw(v, f)``) ->
+    chamfer to the target + DMTET_LAP_W x the mean squared uniform-Laplacian
+    displacement; ``mark()`` after each of the four stages.  Returns (loss,
+    surface vertices, faces)."""
+    verts, faces = marching_tetrahedra(scene['v'], scene['tets'], sdf)
+    v, f = verts[0][None], faces[0]
+    mark()
+    pts = draw(v, f)
+    mark()
+    chamfer = chamfer_distance(pts, scene['target'])[0]
+    mark()
+    lap = uniform_laplacian_smoothing(v, f) - v
+    loss = chamfer + DMTET_LAP_W * (lap ** 2).sum(-1).mean()
+    mark()
+    return loss, v, f
+
+
+def dmtet_step(scene, sdf, gen, mark=lambda: None):
+    sdf.grad = None
+    loss, _, _ = dmtet_loss(scene, sdf, lambda v, f: sample_points(
+        v, f, DMTET_SAMPLES, generator=gen)[0], mark)
+    loss.backward()
+    mark()
+    return loss
+
+
+DMTET_STAGES = ('marching_tetrahedra', 'sample_points', 'chamfer_distance',
+                'laplacian term', 'backward')
+
+
+def dmtet_stage_ms(scene, sdf, gen, runs):
+    """(runs, stages) ms of path D steps after a warm-up step: CUDA events
+    around each stage of the same step, so the stages add up to the step."""
+    dmtet_step(scene, sdf, gen)
+    rows = []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True)]
+        torch.cuda.synchronize()
+        ev[0].record()
+
+        def mark():
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+
+        dmtet_step(scene, sdf, gen, mark)
+        torch.cuda.synchronize()
+        rows.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    return np.asarray(rows)
+
+
+def dmtet_step0(dev):
+    """Step 0 at tet_grid(DMTET_STEP0_GRID), card vs CPU, with the same
+    face choices, u and v through _base_sample_points_selected_faces."""
+    res = {}
+    for where in (dev, 'cpu'):
+        sc = dmtet_scene(DMTET_STEP0_GRID, where)
+        sc['target'] = sc['target'][:, :DMTET_STEP0_TARGET]
+        sdf = sc['sdf'].clone().requires_grad_()
+
+        def draw(v, f):
+            rng = np.random.default_rng(DMTET_SEED + 1)
+            choice = torch.as_tensor(rng.integers(0, f.shape[0],
+                                                  DMTET_STEP0_SAMPLES),
+                                     device=v.device)
+            u = torch.as_tensor(np.sqrt(rng.random(
+                (1, DMTET_STEP0_SAMPLES, 1))).astype(np.float32),
+                device=v.device)
+            w = torch.as_tensor(rng.random((1, DMTET_STEP0_SAMPLES, 1))
+                                .astype(np.float32), device=v.device)
+            fv = v[:, f[choice]]
+            return _base_sample_points_selected_faces(
+                (fv[:, :, 0], fv[:, :, 1], fv[:, :, 2]), u=u, v=w)[0]
+
+        loss, v, f = dmtet_loss(sc, sdf, draw)
+        loss.backward()
+        res[str(where)] = (loss.item(), sdf.grad.cpu(), f.cpu(),
+                           v.detach().cpu())
+    (lg, gg, fg, vg), (lc, gc, fc, vc) = res[str(dev)], res['cpu']
+    _check(torch.equal(fg, fc), 'path D step 0: faces card vs CPU')
+    verr = (vg - vc).abs().max().item()
+    rel = abs(lg - lc) / abs(lc)
+    grel = _close_grads(gg, gc, 'path D step 0: d/dsdf')
+    print(f'path D step 0 (tet_grid({DMTET_STEP0_GRID}), {fg.shape[0]} '
+          f'faces, {DMTET_STEP0_SAMPLES} samples, {DMTET_STEP0_TARGET} '
+          f'target points): faces equal, vertices max|d| {verr:.2e}; loss '
+          f'{lg:.7f} vs {lc:.7f} (rel {rel:.2e}, limit {DMTET_LOSS_RTOL:g});'
+          f' SDF gradient max|d|/max|g| {grel:.2e} (limit '
+          f'{DMTET_GRAD_REL:g})')
+    _check(verr <= MT_VERT_ATOL, 'path D step 0: surface vertices')
+    _check(rel <= DMTET_LOSS_RTOL, 'path D step 0: loss card vs CPU')
+    _check(grel <= DMTET_GRAD_REL, 'path D step 0: gradient card vs CPU')
+
+
+def path_d(dev, card):
+    """Phase 20: path D at tet_grid(64): 5 Adam steps on the SDF, the loss
+    must fall; edge lengths and point-to-mesh distances of the final
+    surface; step 0 against the CPU; times, stage split, kernels per step,
+    idle share, peak memory."""
+    sc = dmtet_scene(DMTET_GRID, dev)
+    sdf = sc['sdf'].clone().requires_grad_()
+    gen = torch.Generator(device=dev).manual_seed(DMTET_SEED)
+    opt = torch.optim.Adam([sdf], lr=DMTET_LR)
+    losses = []
+    for _ in range(STEPS):
+        losses.append(dmtet_step(sc, sdf, gen).item())
+        opt.step()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        verts, faces = marching_tetrahedra(sc['v'], sc['tets'], sdf)
+        v, f = verts[0][None], faces[0]
+        ael = average_edge_length(v, f)
+        p2m, fidx, dtype = point_to_mesh_distance(
+            sc['target'][:, :DMTET_P2M], v[:, f])
+    print(f'path D scene: tet_grid({DMTET_GRID}) of [-0.5, 0.5]^3 '
+          f'({len(sc["tets"])} tets, {sc["v"].shape[1]} vertices), sphere '
+          f'SDF r={DMTET_RADIUS}; target {DMTET_TARGET} points on the '
+          f'ellipsoid {DMTET_ELLIPSOID} (uv_sphere{DMTET_ELLIPSOID_MESH}); '
+          f'{DMTET_SAMPLES} samples a step; {STEPS} Adam steps (lr '
+          f'{DMTET_LR:g}): loss ' + ', '.join(f'{x:.7f}' for x in losses)
+          + f'; final surface {v.shape[1]} vertices, {f.shape[0]} faces, '
+          f'mean edge length {ael.mean().item():.6f}; {DMTET_P2M} target '
+          f'points to it: mean squared distance {p2m.mean().item():.4e}, '
+          f'max {p2m.max().item():.4e}, distance types '
+          f'{torch.bincount(dtype.reshape(-1).long(), minlength=7).tolist()}')
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           'path D: the loss falls')
+    _check(bool(torch.isfinite(p2m).all()) and bool(torch.isfinite(
+        ael).all()), 'path D: metrics finite')
+    dmtet_step0(dev)
+
+    stages = dmtet_stage_ms(sc, sdf, gen, 3)
+    steps = stages.sum(1)
+    step_ms = float(steps.mean())
+    with torch.no_grad():
+        p2m_ms = time_ms(lambda: point_to_mesh_distance(
+            sc['target'][:, :DMTET_P2M], v[:, f]), 1)
+    torch.cuda.reset_peak_memory_stats()
+    dmtet_step(sc, sdf, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[{card}] path D step (marching tets -> {DMTET_SAMPLES} samples '
+          f'-> chamfer to {DMTET_TARGET} + Laplacian -> backward): '
+          f'{step_ms:.3f} ms (3 steps: '
+          + ', '.join(f'{x:.3f}' for x in steps) + '); by stage, mean (min-'
+          'max) ms: ' + '; '.join(
+              f'{n} {c.mean():.3f} ({c.min():.3f}-{c.max():.3f})'
+              for n, c in zip(DMTET_STAGES, stages.T))
+          + f'; point_to_mesh_distance of {DMTET_P2M} points to '
+          f'{f.shape[0]} faces {p2m_ms:.3f} ms; peak device memory of a '
+          f'step {peak:.3f} GiB')
+    idle = step_profile(lambda: dmtet_step(sc, sdf, gen), card)
+    return dict(step_ms=step_ms, idle=idle, peak=peak)
+
+
+# ---------------------------------------------------------------------------
+# Path E: occupancy evaluation of a mesh: check_sign on the 128^3 cell
+# centres, the voxel-grid ops, marching cubes, the metrics
+
+def cell_centres(res, dev):
+    """(1, res^3, 3) centres of the res^3 cells of [-0.5, 0.5]^3."""
+    c = (torch.arange(res, device=dev, dtype=torch.float32) + 0.5) / res \
+        - 0.5
+    return torch.stack(torch.meshgrid(c, c, c, indexing='ij'),
+                       -1).reshape(1, -1, 3)
+
+
+def occ_mesh(dev):
+    s = uv_sphere(*SPHERE)
+    return (torch.as_tensor((s.vertices * OCC_RADIUS)[None], device=dev),
+            torch.as_tensor(s.faces, device=dev))
+
+
+def mc_world(v, res):
+    """Marching-cubes vertices (padded-grid frame) to world coordinates."""
+    return (v - 0.5) / res - 0.5
+
+
+def occupancy_eval(dev, res):
+    """The evaluation through the entry points; returns its results and
+    the stage times on the host clock (each stage synchronised)."""
+    t, out = {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        t[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    verts, faces = occ_mesh(dev)
+    pts = cell_centres(res, dev)
+    occ = stage('check_sign', lambda: check_sign(verts, faces, pts)) \
+        .reshape(1, res, res, res)
+    down = stage('downsample x2', lambda: downsample(occ, 2))
+    surf = stage('extract_surface', lambda: extract_surface(occ))
+    filled = stage('fill', lambda: fill(surf))
+    odms = stage('extract_odms', lambda: extract_odms(occ))
+    hull = stage('project_odms', lambda: project_odms(odms))
+    mv, mf = stage('marching cubes', lambda: voxelgrids_to_trianglemeshes(
+        occ))
+    cv, cf = stage('cubic meshes', lambda: voxelgrids_to_cubic_meshes(occ))
+    vox = stage('trianglemeshes_to_voxelgrids', lambda: fill(
+        trianglemeshes_to_voxelgrids(
+            verts, faces, res,
+            origin=torch.full((1, 3), -0.5 + 0.5 / res, device=dev),
+            scale=torch.full((1,), (res - 1) / res, device=dev)).bool()))
+    score = stage('iou', lambda: iou(occ, vox))
+    gen = torch.Generator(device=dev).manual_seed(OCC_SEED)
+    mc_pts, src_pts = stage('sample_points', lambda: (
+        sample_points(mc_world(mv[0], res)[None], mf[0], OCC_SAMPLES,
+                      generator=gen)[0],
+        sample_points(verts, faces, OCC_SAMPLES, generator=gen)[0]))
+    ch = stage('chamfer_distance', lambda: chamfer_distance(mc_pts, src_pts))
+    fs = stage('f_score', lambda: f_score(src_pts, mc_pts,
+                                          radius=OCC_FSCORE_RADIUS))
+    p2m = stage('point_to_mesh_distance', lambda: point_to_mesh_distance(
+        mc_pts, verts[:, faces]))
+    out.update(pts=pts, occ=occ, down=down, surf=surf, filled=filled,
+               hull=hull, mc=(mv[0], mf[0]), cubic=(cv[0], cf[0]), vox=vox,
+               iou=score.item(), chamfer=ch.item(), f_score=fs.item(),
+               p2m=p2m[0])
+    return out, t
+
+
+def occ_card_vs_cpu(dev):
+    """check_sign and marching cubes at OCC_PARITY_RES, card vs CPU."""
+    res = {}
+    for where in (dev, 'cpu'):
+        verts, faces = occ_mesh(where)
+        pts = cell_centres(OCC_PARITY_RES, where)
+        occ = check_sign(verts, faces, pts).reshape((1,) + (
+            OCC_PARITY_RES,) * 3)
+        mv, mf = voxelgrids_to_trianglemeshes(occ)
+        res[str(where)] = (occ.cpu(), mv[0].cpu(), mf[0].cpu())
+    (og, vg, fg), (oc, vc, fc) = res[str(dev)], res['cpu']
+    _check(torch.equal(og, oc), 'path E: check_sign card vs CPU')
+    _check(torch.equal(fg, fc), 'path E: marching cubes faces card vs CPU')
+    verr = (vg - vc).abs().max().item()
+    _check(verr <= MT_VERT_ATOL, 'path E: marching cubes vertices')
+    print(f'path E at {OCC_PARITY_RES}^3, card vs CPU: check_sign equal '
+          f'({int(oc.sum())} inside), marching cubes {fc.shape[0]} faces '
+          f'equal, vertices max|d| {verr:.2e}')
+
+
+def path_e(dev, card):
+    """Phase 21: path E at 128^3 through the entry points, its checks,
+    card vs CPU at 32^3, stage times, kernels, idle share, peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, t_cold = occupancy_eval(dev, OCC_RES)
+    cold = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r = torch.linalg.norm(out['pts'][0], dim=-1)
+    occ = out['occ'].reshape(-1)
+    far = (r - OCC_RADIUS).abs() > OCC_SHELL
+    wrong = int((occ[far] != (r[far] < OCC_RADIUS)).sum())
+    mv, mf = out['mc']
+    print(f'path E: check_sign of {r.shape[0]} cell centres ({OCC_RES}^3) '
+          f'against uv_sphere{SPHERE} x {OCC_RADIUS}: {int(occ.sum())} '
+          f'inside; {wrong} of {int(far.sum())} points farther than '
+          f'{OCC_SHELL:g} from the sphere disagree with |p| < '
+          f'{OCC_RADIUS}; downsample x2 mean {out["down"].mean().item():.6f}'
+          f'; surface {int(out["surf"].sum())} voxels, fill(surface) equal '
+          f'to the solid: {torch.equal(out["filled"], out["occ"])}; ODM '
+          f'hull {int(out["hull"].sum())} voxels; marching cubes '
+          f'{mv.shape[0]} vertices, {mf.shape[0]} faces; cubic mesh '
+          f'{out["cubic"][0].shape[0]} vertices, {out["cubic"][1].shape[0]}'
+          f' faces; iou against the filled surface voxelization '
+          f'{out["iou"]:.6f}; marching cubes vs source mesh, '
+          f'{OCC_SAMPLES} samples each: chamfer {out["chamfer"]:.4e}, '
+          f'f_score (r={OCC_FSCORE_RADIUS:g}) {out["f_score"]:.6f}, '
+          f'point_to_mesh mean squared distance '
+          f'{out["p2m"].mean().item():.4e}')
+    _check(wrong == 0, 'path E: check_sign off the surface shell')
+    _check(torch.equal(out['filled'], out['occ']),
+           'path E: fill(extract_surface(x)) == x for the solid sphere')
+    _check(bool((out['hull'] >= out['occ']).all()),
+           'path E: the ODM hull holds the solid')
+    _check(out['iou'] > OCC_IOU_MIN, 'path E: iou against the voxelization')
+    _check(out['f_score'] > 0.5 and np.isfinite(out['chamfer']),
+           'path E: metrics')
+    occ_card_vs_cpu(dev)
+    # a warm evaluation between CUDA events (the stages synchronise)
+    t = {}
+    wall = time_ms(lambda: t.update(occupancy_eval(dev, OCC_RES)[1]), 1,
+                   warmup=0)
+    print(f'[{card}] path E, one warm evaluation: {wall:.3f} ms (CUDA '
+          f'events; the first, cold, {cold:.3f} ms on the host clock); by '
+          f'stage (ms, host clock, each synchronised): ' + ', '.join(
+              f'{k} {v:.3f}' for k, v in t.items())
+          + f'; cold check_sign {t_cold["check_sign"]:.3f}; peak device '
+          f'memory {peak:.3f} GiB')
+    idle = step_profile(lambda: occupancy_eval(dev, OCC_RES), card,
+                        steps=1)
+    return dict(wall_ms=wall, stages=t, idle=idle, peak=peak)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is '
@@ -1932,15 +2605,29 @@ def main():
     phase('17: path A (camera -> K3 -> trilinear features -> integration)')
     path_b(fv, dev, card)
     phase('18: path B (sparse convolutions over the level-10 octree)')
+    torch.cuda.empty_cache()
+    path_c_out = path_c(dev, card)
+    phase('19: path C (SG light recovery through K1)')
+    torch.cuda.empty_cache()
+    path_d(dev, card)
+    phase('20: path D (DMTet chamfer fit)')
+    torch.cuda.empty_cache()
+    path_e(dev, card)
+    phase('21: path E (occupancy evaluation)')
 
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
     trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cu'
     kernels = [
         dict(name='fused_forward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:232',
-             launches=launches['fwd'], max_abs_err=k1_err,
+             launches=launches['fwd'] + path_c_out['launches'],
+             path_launches={'dibr': launches['fwd'],
+                            'path_c': path_c_out['launches']},
+             max_abs_err=max(k1_err, path_c_out['k1_err']),
              ms=t['k1_ms'], plain_ms=t['k1_plain_ms'],
-             **_bound(k1_b, k1_f), library_ms=None),
+             **_bound(k1_b, k1_f), library_ms=None,
+             path_c_ms=path_c_out['k1_ms'],
+             path_c_plain_ms=path_c_out['k1_plain_ms']),
         dict(name='fused_backward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:386',
              launches=launches['bwd'], max_abs_err=k2_err,

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from kaolin_tpu_torch._clip import clip
 from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.metrics.render import mask_iou
 from kaolin_tpu_torch.render import camera as camera_fns
@@ -170,8 +171,8 @@ def render_views(params, views, faces, face_uvs, height, width,
     albedo = mesh_render.texture_mapping(uv_map, texture, mode='bilinear')
     lighting = mesh_render.spherical_harmonic_lighting(
         normal_map, params.sh_coeffs[None].expand(B, 9))
-    images = albedo * torch.clamp(lighting, min=0.)[..., None]
-    images = torch.clamp(images, 0., 1.)
+    images = albedo * clip(lighting, 0.)[..., None]
+    images = clip(images, 0., 1.)
     images = torch.where((face_idx >= 0)[..., None], images, 0.)
     if with_soft_mask:
         soft_mask = mesh_render.dibr_soft_mask(

@@ -1,12 +1,17 @@
-"""Generic mesh ops.
+"""Generic mesh ops: indexing, adjacency, laplacian, vertex normals.
 
-Port of ``kaolin_tpu/ops/mesh/mesh.py``: what the DIB-R step and
-:class:`~kaolin_tpu_torch.rep.SurfaceMesh` need.
+Port of ``kaolin_tpu/ops/mesh/mesh.py``.  The JAX package deduplicates
+edges on the host (``np.unique(axis=0)``); here they are deduplicated on
+the faces' device through one int64 key ``i * V + j`` per directed edge,
+whose sorted order is ``np.unique``'s lexicographic order of the pairs.
 """
 
 import torch
 
-__all__ = ['index_vertices_by_faces', 'compute_vertex_normals']
+from kaolin_tpu_torch._device import entry_device
+
+__all__ = ['index_vertices_by_faces', 'adjacency_matrix',
+           'uniform_laplacian', 'compute_vertex_normals']
 
 
 def index_vertices_by_faces(vertices_features, faces):
@@ -25,6 +30,65 @@ def index_vertices_by_faces(vertices_features, faces):
             f"{tuple(vertices_features.shape)}")
     faces = torch.as_tensor(faces, device=vertices_features.device)
     return vertices_features[:, faces.long()]
+
+
+def _unique_edges(faces, num_vertices=None):
+    """All directed edges (i -> j and j -> i) of the faces, deduplicated,
+    in lexicographic order: ``(E, 2)`` int64 on the faces' device."""
+    faces = torch.as_tensor(faces).long()
+    if num_vertices is None:
+        num_vertices = int(faces.max()) + 1 if faces.numel() else 0
+    rolled = torch.roll(faces, 1, dims=-1)
+    i = torch.cat([faces.reshape(-1), rolled.reshape(-1)])
+    j = torch.cat([rolled.reshape(-1), faces.reshape(-1)])
+    key = torch.unique(i * num_vertices + j)
+    return torch.stack([key // num_vertices, key % num_vertices], dim=-1)
+
+
+def adjacency_matrix(num_vertices, faces, sparse=True, device=None):
+    """Vertex adjacency matrix of a mesh.
+
+    ``sparse=True`` returns a coalesced ``torch.sparse_coo_tensor`` (its
+    indices in lexicographic order); ``sparse=False`` a dense ``(V, V)``
+    float32 tensor.  On ``device`` (default: the device of a tensor
+    ``faces``, else the card).
+    """
+    device = entry_device(device, faces)
+    indices = _unique_edges(torch.as_tensor(faces, device=device),
+                            num_vertices)
+    values = torch.ones(indices.shape[0], dtype=torch.float32,
+                        device=device)
+    if sparse:
+        return torch.sparse_coo_tensor(
+            indices.t(), values, (num_vertices, num_vertices),
+            check_invariants=False).coalesce()
+    adj = torch.zeros((num_vertices, num_vertices), dtype=torch.float32,
+                      device=device)
+    adj[indices[:, 0], indices[:, 1]] = 1.
+    return adj
+
+
+def _edge_degrees(indices, num_vertices, dtype):
+    return torch.zeros(num_vertices, dtype=dtype,
+                       device=indices.device).index_add_(
+        0, indices[:, 0], torch.ones(indices.shape[0], dtype=dtype,
+                                     device=indices.device))
+
+
+def uniform_laplacian(num_vertices, faces, device=None):
+    """Uniform (combinatorial) Laplacian ``L = A / deg - I``, dense
+    ``(V, V)`` float32; rows of isolated vertices are 0.  On ``device``
+    (default: the device of a tensor ``faces``, else the card)."""
+    device = entry_device(device, faces)
+    indices = _unique_edges(torch.as_tensor(faces, device=device),
+                            num_vertices)
+    deg = _edge_degrees(indices, num_vertices, torch.float32)
+    safe_deg = torch.where(deg > 0, deg, 1.)
+    L = torch.zeros((num_vertices, num_vertices), dtype=torch.float32,
+                    device=device)
+    L[indices[:, 0], indices[:, 1]] = 1. / safe_deg[indices[:, 0]]
+    L -= torch.diag((deg > 0).to(torch.float32))
+    return L
 
 
 def compute_vertex_normals(faces, face_normals, num_vertices=None):

@@ -9,6 +9,7 @@ from typing import Sequence
 
 import torch
 
+from kaolin_tpu_torch._clip import clip
 from kaolin_tpu_torch.render.camera.extrinsics import CameraExtrinsics
 from kaolin_tpu_torch.render.camera.intrinsics import (CameraFOV,
                                                        CameraIntrinsics)
@@ -222,8 +223,8 @@ class Camera:
                               -torch.ones_like(orig[..., :1])], dim=-1)
         out_orig, out_dir = self.extrinsics.inv_transform_rays(
             orig.reshape(C, -1, 3), dirs.reshape(C, -1, 3))
-        out_dir = out_dir / torch.clamp(
-            torch.linalg.norm(out_dir, dim=-1, keepdim=True), min=1e-12)
+        out_dir = out_dir / clip(
+            torch.linalg.norm(out_dir, dim=-1, keepdim=True), 1e-12)
         return out_orig, out_dir
 
 

@@ -14,6 +14,8 @@ from enum import IntEnum
 
 import torch
 
+from kaolin_tpu_torch._clip import clip
+
 __all__ = ['ExtrinsicsParamsDefEnum', 'ExtrinsicsRep', 'register_backend',
            'get_backend', 'available_backends', 'MatrixSE3Rep',
            'Matrix6DofRotationRep']
@@ -54,8 +56,7 @@ def available_backends():
 
 def _normalize(v):
     """Rows of ``v`` over their norm, floored at 1e-12."""
-    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
-                           min=1e-12)
+    return v / clip(torch.linalg.norm(v, dim=-1, keepdim=True), 1e-12)
 
 
 def _bottom_row(top):

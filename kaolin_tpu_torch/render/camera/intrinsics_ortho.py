@@ -7,6 +7,7 @@ from enum import IntEnum
 
 import torch
 
+from kaolin_tpu_torch._clip import clip
 from kaolin_tpu_torch.render.camera.intrinsics import (
     CameraIntrinsics, default_dtype)
 
@@ -73,10 +74,9 @@ class OrthographicIntrinsics(CameraIntrinsics):
         """Depths normalized to [0, 1] linearly within [near, far]."""
         if depth.ndim < 2:
             depth = depth.expand((len(self),) + tuple(depth.shape))
-        depth = torch.clamp(depth, min(self.near, self.far),
-                            max(self.near, self.far))
-        return torch.clamp((depth - self.near) / (self.far - self.near),
-                           0.0, 1.0)
+        depth = clip(depth, min(self.near, self.far),
+                     max(self.near, self.far))
+        return clip((depth - self.near) / (self.far - self.near), 0., 1.)
 
     def zoom(self, amount):
         """Zoom in by decreasing ``fov_distance`` (kept >= 1e-4)."""

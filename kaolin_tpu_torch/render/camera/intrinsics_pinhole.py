@@ -14,6 +14,7 @@ from enum import IntEnum
 
 import torch
 
+from kaolin_tpu_torch._clip import clip
 from kaolin_tpu_torch.render.camera.intrinsics import (
     CameraFOV, CameraIntrinsics, default_dtype)
 
@@ -179,10 +180,9 @@ class PinholeIntrinsics(CameraIntrinsics):
         proj = self.projection_matrix()
         a = -proj[:, 2, 2]
         b = -proj[:, 2, 3]
-        depth = torch.clamp(depth, min(self.near, self.far),
-                            max(self.near, self.far))
+        depth = clip(depth, min(self.near, self.far),
+                     max(self.near, self.far))
         ndc_depth = a[:, None] - b[:, None] / depth
         ndc_min = min(self.ndc_min, self.ndc_max)
         ndc_max = max(self.ndc_min, self.ndc_max)
-        return torch.clamp((ndc_depth - ndc_min) / (ndc_max - ndc_min),
-                           0.0, 1.0)
+        return clip((ndc_depth - ndc_min) / (ndc_max - ndc_min), 0., 1.)

@@ -9,6 +9,7 @@ nearest sampling is plain advanced indexing.
 import torch
 import torch.nn.functional as F
 
+from kaolin_tpu_torch._clip import clip
 from kaolin_tpu_torch.render import camera as _camera
 from kaolin_tpu_torch.ops import mesh as _mesh_ops
 
@@ -35,7 +36,7 @@ def texture_mapping(texture_coordinates, texture_maps, mode='nearest'):
     TH, TW = texture_maps.shape[2:]
     lead_shape = tuple(texture_coordinates.shape[1:-1])
     uv = texture_coordinates.reshape(batch_size, -1, 2)
-    uv = torch.clamp(uv, 0., 1.)
+    uv = clip(uv, 0., 1.)
     uv = uv * 2. - 1.
     cx = uv[..., 0]
     cy = -uv[..., 1]  # flip y

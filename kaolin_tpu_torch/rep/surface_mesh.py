@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from kaolin_tpu_torch._clip import clip
 from kaolin_tpu_torch.ops.mesh.mesh import (compute_vertex_normals,
                                             index_vertices_by_faces)
 from kaolin_tpu_torch.ops.mesh.trianglemesh import face_normals
@@ -195,8 +196,8 @@ class SurfaceMesh:
                         vn = compute_vertex_normals(
                             faces_, batched,
                             num_vertices=self._num_vertices())
-                        vn = vn / torch.clamp(torch.linalg.norm(
-                            vn, dim=-1, keepdim=True), min=1e-12)
+                        vn = vn / clip(torch.linalg.norm(
+                            vn, dim=-1, keepdim=True), 1e-12)
                         return (vn if face_normals_.ndim == 4 else vn[0])
                     if self.batching == Batching.LIST:
                         return [fn(f_, fa_) for f_, fa_ in

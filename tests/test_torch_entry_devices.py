@@ -43,6 +43,10 @@ from kaolin_tpu_torch.render.spc.raster import unbatched_raytrace_coherent
 from kaolin_tpu_torch.rep import Spc
 from kaolin_tpu_torch.utils.testing import (camera_grid, tet_grid,
                                             uv_sphere, write_sphere_obj)
+from kaolin_tpu_torch.ops import gcn, random as rnd, voxelgrid
+from kaolin_tpu_torch.ops.conversions import voxelgrid as vg_conv
+from kaolin_tpu_torch.ops.mesh import (adjacency_matrix, sample_points,
+                                       uniform_laplacian)
 
 LEVEL = 3
 
@@ -195,6 +199,34 @@ ENTRY = {
     'Camera.from_args': lambda device=None: Camera.from_args(
         **_LOOKAT, fov=0.8, width=4, height=4,
         device=device).generate_rays()[1],
+    # slice 8
+    'random_tensor': lambda device=None: rnd.random_tensor(
+        0., 1., (3,), device=device),
+    'random_spc_octrees': lambda device=None: rnd.random_spc_octrees(
+        1, 2, device=device)[0],
+    'sample_spherical_coords': lambda device=None:
+        rnd.sample_spherical_coords((3,), device=device)[0],
+    'sample_points': lambda device=None: sample_points(
+        _Mesh.vertices[None], uv_sphere(8, 5).faces, 10,
+        generator=torch.Generator().manual_seed(0), device=device)[0],
+    'adjacency_matrix': lambda device=None: adjacency_matrix(
+        4, np.array([[0, 1, 2], [1, 3, 2]]), device=device),
+    'uniform_laplacian': lambda device=None: uniform_laplacian(
+        4, np.array([[0, 1, 2], [1, 3, 2]]), device=device),
+    'fill': lambda device=None: voxelgrid.fill(_GRID[:, 0], device=device),
+    'voxelgrids_to_cubic_meshes': lambda device=None:
+        vg_conv.voxelgrids_to_cubic_meshes(_GRID[:, 0], device=device)[0][0],
+    'voxelgrids_to_trianglemeshes': lambda device=None:
+        vg_conv.voxelgrids_to_trianglemeshes(_GRID[:, 0],
+                                             device=device)[0][0],
+    'voxelgrids_to_trianglemeshes_mt': lambda device=None:
+        vg_conv.voxelgrids_to_trianglemeshes_mt(_GRID[:, 0],
+                                                device=device)[0][0],
+    'GraphConv': lambda device=None: gcn.GraphConv(
+        2, 3, device=device).linear.weight,
+    'gcn.from_jax_params': lambda device=None: gcn.from_jax_params(
+        {'linear': {'kernel': np.ones((2, 3))}},
+        device=device)['linear.weight'],
 }
 
 
@@ -222,3 +254,16 @@ def test_tensor_inputs_keep_their_device():
     assert hits.t_near.device.type == 'cpu' and int(hits.count.sum()) > 0
     ridx = unbatched_raytrace(t[0], t[1], pyr, t[2], t[3], t[4], LEVEL)[0]
     assert ridx.device.type == 'cpu' and ridx.numel() > 0
+
+
+def test_slice8_tensor_inputs_keep_their_device():
+    s = uv_sphere(8, 5)
+    v = torch.as_tensor(s.vertices[None] * 0.4)
+    pts, choice = sample_points(v, s.faces, 20)
+    assert pts.device.type == 'cpu' and choice.device.type == 'cpu'
+    grid = torch.as_tensor(_GRID[:, 0])
+    assert voxelgrid.fill(grid).device.type == 'cpu'
+    assert vg_conv.voxelgrids_to_trianglemeshes(grid)[0][0].device.type \
+        == 'cpu'
+    assert adjacency_matrix(4, torch.tensor([[0, 1, 2]])).device.type \
+        == 'cpu'

@@ -218,6 +218,16 @@ def test_port_imports_no_jax():
             'from kaolin_tpu_torch.ops.mesh import tetmesh; '
             'from kaolin_tpu_torch.metrics import tetmesh; '
             'from kaolin_tpu_torch.ops.conversions import tetmesh; '
+            'from kaolin_tpu_torch import _clip; '
+            'from kaolin_tpu_torch.render import lighting; '
+            'from kaolin_tpu_torch.render.lighting import sg, sh; '
+            'from kaolin_tpu_torch.ops import batch, coords, gcn, '
+            'pointcloud, random, reduction, voxelgrid; '
+            'from kaolin_tpu_torch.ops.mesh import check_sign, mesh, '
+            'trianglemesh; '
+            'from kaolin_tpu_torch.ops.conversions import _mcube, voxelgrid; '
+            'from kaolin_tpu_torch.metrics import pointcloud, trianglemesh, '
+            'voxelgrid; '
             'bad = [m for m in sys.modules '
             "if m == 'jax' or m.startswith(('jax.', 'kaolin_tpu.'))]; "
             'print(bad); sys.exit(1 if bad else 0)')
