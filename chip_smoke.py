@@ -10,7 +10,8 @@ SH-lit render -> image L1 + mask IoU loss -> backward -> Adam) at 512^2,
 
 1. toolchain: the card, torch, nvcc, triton; every kernel source in
    ``kaolin_tpu_torch/csrc`` is built at once, one ``nvcc`` each, into
-   ``build/kaolin_tpu_torch/``;
+   ``build/kaolin_tpu_torch/``, and the host library (``g++``, the
+   ``csrc/*.cpp`` copies) beside them;
 2. the forward kernel (K1) against its plain PyTorch version;
 3. the backward kernel (K2) against its plain PyTorch version; the work
    both kernels cull to (K1's evaluated (pixel, face) pairs beside those of
@@ -149,6 +150,30 @@ computes them without a Pallas kernel):
     cubes at 32^3 against the CPU; stage times, kernels, idle share, peak
     memory.
 
+The port's native host layer, USD I/O, Timelapse and training-state
+checkpoints around the DIB-R cell (plain PyTorch, host C++ and K1/K2):
+
+22. path F, the ``--logdir`` workflow of
+    ``examples/dibr_inverse_rendering.py`` and an ONet-style evaluation:
+    the 10,000-face sphere written as OBJ and imported through the native
+    tokenizer onto the card (and a 250,000-face sphere parsed by the native
+    and the Python paths, timed, the arrays bit-equal); K1 and K2 against
+    their plain versions on the first step's inputs, one view; 20 Adam
+    steps of the DIB-R cell (fused, 4 views, 512^2) from the perturbed
+    sphere, a ``Timelapse`` of the mesh and of 10,000 ``sample_points``
+    at iterations 0, 5, 10 and 15, the state at step 10 saved with
+    ``utils.checkpoint.save`` and ``save_npz``, loaded back bit-equal, and
+    step 10 from the loaded state against step 10 in memory (loss and
+    gradients within step 0's limits); the loop on the card's timeline
+    (idle share); ``TimelapseParser`` and the last sample read back bit for
+    bit; ``sdf_to_voxelgrids`` (MISE 32 -> 257^3) of the fitted mesh with
+    ``check_sign(use_hash=True)`` as occupancy, on the card and on the CPU
+    (equal), the hash build, queries and device test timed level by level,
+    the hash against the vectorised ``check_sign`` on 100,000 query points
+    off a 1e-3 shell; marching cubes of the grid through ``export_mesh`` ->
+    ``import_mesh`` and ``extract_surface`` through ``add_voxelgrid_batch``
+    -> ``import_voxelgrid``, each bit-equal; times, peak memory.
+
 Each phase prints its seconds, and the script its total.
 
 Every kernel of the ``kernels`` line carries its time, its plain
@@ -164,6 +189,7 @@ it lists the kernels.
 
 import json
 import math
+import os
 import subprocess
 import tempfile
 import time
@@ -172,7 +198,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from kaolin_tpu_torch import _cuda
+from kaolin_tpu_torch import _cuda, _native
+from kaolin_tpu_torch.io import usd
 from kaolin_tpu_torch.io.obj import import_mesh
 from kaolin_tpu_torch.metrics import tetmesh as met_tet
 from kaolin_tpu_torch.models import inverse_render as M
@@ -214,8 +241,12 @@ from kaolin_tpu_torch.ops.conversions.voxelgrid import (
 from kaolin_tpu_torch.ops.coords import spherical2cartesian
 from kaolin_tpu_torch.ops.mesh import (check_sign, index_vertices_by_faces,
                                        sample_points)
+from kaolin_tpu_torch.ops.mesh.check_sign import _hash_parity
 from kaolin_tpu_torch.ops.mesh.trianglemesh import (
     _base_sample_points_selected_faces)
+from kaolin_tpu_torch.ops.conversions import sdf_to_voxelgrids
+from kaolin_tpu_torch.utils import checkpoint as ckpt
+from kaolin_tpu_torch.visualize import Timelapse, TimelapseParser
 from kaolin_tpu_torch.ops.voxelgrid import (downsample, extract_odms,
                                             extract_surface, fill,
                                             project_odms)
@@ -415,6 +446,11 @@ def toolchain(card):
         for line in _cuda.BUILD_LOG.get(name, '').splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 print(f'  ptxas: {line.strip()}')
+    t0 = time.perf_counter()
+    _native.get_lib()
+    print(f'host library (g++ {" ".join(_native.CXX_FLAGS)}: '
+          f'{", ".join(_native.SOURCES)}) build + load: '
+          f'{time.perf_counter() - t0:.2f} s')
 
 
 def make_scene(dev, height=HEIGHT, views=VIEWS, texture_res=TEXTURE_RES,
@@ -2526,6 +2562,409 @@ def path_e(dev, card):
     return dict(wall_ms=wall, stages=t, idle=idle, peak=peak)
 
 
+# ---------------------------------------------------------------------------
+# Path F: a DIB-R fit that logs a Timelapse, resumes from a checkpoint and
+# ends in a MISE occupancy extraction through the triangle hash
+
+PF_STEPS = 20
+PF_LOG_EVERY = 5            # Timelapse at iterations 0, 5, 10, 15
+PF_SAVE_AT = 10             # checkpoint of the state step 10 starts from
+PF_POINTS = 10_000          # sample_points logged as a point cloud
+PF_SEED = 24
+PF_BIG_SPHERE = (500, 251)  # 250,000 faces: the parse timing
+PF_MISE = dict(init_res=32, upsampling_steps=3, bbox_dim=1.2)   # 257^3
+PF_HASH_RES = 512
+PF_PARITY_POINTS = 100_000  # MISE query points: hash against vectorised
+PF_SHELL = 1e-3             # ... equal but within this of the surface
+
+
+def _bits_equal(a, b):
+    """Equality of two tensors of one dtype and device, float32 bitwise."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(_bits(a), _bits(b))
+    return torch.equal(a, b)
+
+
+def _tree_bits_equal(a, b):
+    """Every tensor of two states bitwise equal, every other leaf equal."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and _bits_equal(a.detach(), b.detach())
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(
+            _tree_bits_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(
+            _tree_bits_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def pf_import(dev, tmp):
+    """The DIB-R cell's sphere through the native OBJ path onto the card;
+    a 250,000-face sphere through the native and the Python parse."""
+    s = uv_sphere(*SPHERE)
+    path = write_sphere_obj(tmp, s)
+    t0 = time.perf_counter()
+    mesh = import_mesh(path, device=dev)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    same = (mesh.vertices.device.type == torch.device(dev).type
+            and torch.equal(mesh.vertices.cpu(), torch.as_tensor(s.vertices))
+            and torch.equal(mesh.faces.cpu(), torch.as_tensor(s.faces))
+            and torch.equal(mesh.face_uvs.cpu(),
+                            torch.as_tensor(s.uvs[s.face_uvs_idx])))
+    _check(same, 'path F: the native import equals the generator')
+    big = uv_sphere(*PF_BIG_SPHERE)
+    big_dir = os.path.join(tmp, 'big')
+    os.makedirs(big_dir)
+    big_path = write_sphere_obj(big_dir, big)
+    t = {}
+    for name, kw in (('native', {}), ('python', dict(with_materials=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = import_mesh(big_path, device=dev, **kw)
+        torch.cuda.synchronize()
+        t[name] = ((time.perf_counter() - t0) * 1e3, m)
+    a, b = t['native'][1], t['python'][1]
+    equal = all(_bits_equal(getattr(a, k), getattr(b, k)) for k in (
+        'vertices', 'faces', 'uvs', 'face_uvs_idx'))
+    print(f'path F import: uv_sphere{SPHERE} OBJ through the native '
+          f'tokenizer onto the card {import_ms:.1f} ms (host clock), equal '
+          f"to the generator's: {same}; uv_sphere{PF_BIG_SPHERE} "
+          f'({b.faces.shape[0]} faces, {os.path.getsize(big_path)} bytes): '
+          f'native parse + upload {t["native"][0]:.1f} ms, Python parse '
+          f'(with_materials=True) + upload {t["python"][0]:.1f} ms (host '
+          f'clock of the GPU machine), ratio '
+          f'{t["python"][0] / t["native"][0]:.1f}; arrays bit-equal: {equal}')
+    _check(equal, 'path F: native and Python parse equal')
+    return mesh
+
+
+def pf_checkpoint(scene, params, opt, ckdir, step):
+    """Save the state at ``step`` (torch.save and npz), load both back,
+    hold them bit-equal to the state in memory; a twin model and optimizer
+    from the loaded state.  Returns (twin, twin_opt)."""
+    state = {'params': params.as_params(), 'opt': opt.state_dict(),
+             'step': step}
+    t = {}
+    t0 = time.perf_counter()
+    ckpt.save(ckdir, state, step=step)
+    t['save_ms'] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    npz = ckpt.save_npz(os.path.join(ckdir, 'params.npz'), params.as_params())
+    t['save_npz_ms'] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = ckpt.load(ckdir, like=state)
+    torch.cuda.synchronize()
+    t['load_ms'] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back_npz = ckpt.load_npz(npz, device=params.vertices.device)
+    torch.cuda.synchronize()
+    t['load_npz_ms'] = (time.perf_counter() - t0) * 1e3
+    same = _tree_bits_equal(state, back)
+    same_npz = _tree_bits_equal(tuple(state['params']), tuple(back_npz))
+    adam = back['opt']['state']
+    print(f'path F checkpoint at step {step}: save {t["save_ms"]:.1f} ms, '
+          f'load {t["load_ms"]:.1f} ms, save_npz {t["save_npz_ms"]:.1f} ms, '
+          f'load_npz {t["load_npz_ms"]:.1f} ms (host clock); loaded state '
+          f'bit-equal to memory: {same} (Adam step '
+          f'{adam[0]["step"].item():g}, exp_avg, exp_avg_sq of '
+          f'{len(adam)} parameters), npz params bit-equal: {same_npz}')
+    _check(same, 'path F: checkpoint round trip bit-equal')
+    _check(same_npz, 'path F: npz round trip bit-equal')
+    twin = M.from_jax_params(*(np.zeros(tuple(p.shape), np.float32)
+                               for p in back['params']),
+                             device=params.vertices.device)
+    twin.load_params(back['params'])
+    twin_opt = torch.optim.Adam(twin.parameters(), lr=1.)
+    twin_opt.load_state_dict(back['opt'])
+    return twin, twin_opt
+
+
+def pf_fit(scene, mesh, tl, ckdir):
+    """The 20 Adam steps with the Timelapse and the checkpoint; the twin
+    resumed from the checkpoint takes step PF_SAVE_AT beside the loop.
+    Returns the losses, what was logged, the Timelapse write times and the
+    resume comparison."""
+    params = scene['params']
+    opt = torch.optim.Adam(params.parameters(), lr=LR)
+    gen = torch.Generator(device=params.vertices.device).manual_seed(PF_SEED)
+    faces = scene['faces']
+    losses, logged, t_log, resume = [], {}, {}, {}
+    for step in range(PF_STEPS):
+        if step % PF_LOG_EVERY == 0:
+            v = params.vertices.detach()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tl.add_mesh_batch(iteration=step, category='fit',
+                              vertices_list=[v], faces_list=[faces],
+                              uvs_list=[mesh.uvs],
+                              face_uvs_idx_list=[mesh.face_uvs_idx])
+            t1 = time.perf_counter()
+            pts = sample_points(v[None], faces, PF_POINTS,
+                                generator=gen)[0][0]
+            tl.add_pointcloud_batch(iteration=step, category='fit',
+                                    pointcloud_list=[pts])
+            t_log[step] = ((t1 - t0) * 1e3,
+                           (time.perf_counter() - t1) * 1e3)
+            logged[step] = (v.cpu().clone(), pts.cpu().clone())
+        if step == PF_SAVE_AT:
+            twin, twin_opt = pf_checkpoint(scene, params, opt, ckdir, step)
+            loss_r, _ = _step(scene, twin)
+            resume['loss'] = loss_r.item()
+            resume['grads'] = [p.grad.clone() for p in twin.parameters()]
+            twin_opt.step()
+        loss, _ = _step(scene, params)
+        if step == PF_SAVE_AT:
+            resume['grads_mem'] = [p.grad.clone() for p in params.parameters()]
+            before = [p.detach().clone() for p in params.parameters()]
+        opt.step()
+        losses.append(loss.item())
+        if step == PF_SAVE_AT:
+            resume['loss_mem'] = losses[-1]
+            resume['params'] = [(a, b.detach().clone(), c.detach().clone())
+                                for a, b, c in zip(before, params.parameters(),
+                                                   twin.parameters())]
+    return losses, logged, t_log, resume
+
+
+def pf_check_resume(resume):
+    """One step from the restored state against the same step from the
+    state in memory: loss and gradients within step 0's card-vs-CPU limits,
+    the Adam update within STEP0_GRAD_REL of its largest entry."""
+    rel = abs(resume['loss'] - resume['loss_mem']) / abs(resume['loss_mem'])
+    print(f'path F resume: step {PF_SAVE_AT} from the loaded checkpoint vs '
+          f'from memory: loss {resume["loss"]:.7f} vs '
+          f'{resume["loss_mem"]:.7f} (rel {rel:.2e}, limit '
+          f'{STEP0_LOSS_RTOL:g})')
+    _check(rel <= STEP0_LOSS_RTOL, 'path F: resumed loss')
+    names = ('vertices', 'texture_map', 'sh_coeffs')
+    for name, g_r, g_m, (p0, p_m, p_r) in zip(
+            names, resume['grads'], resume['grads_mem'], resume['params']):
+        g_scale = g_m.abs().max().item()
+        g_err = (g_r - g_m).abs().max().item()
+        u_scale = (p_m - p0).abs().max().item()
+        u_err = (p_r - p_m).abs().max().item()
+        print(f'  {name}: grad max|d| {g_err:.3e} of max|g| {g_scale:.3e}; '
+              f'after the Adam step max|d| {u_err:.3e} of the largest update '
+              f'{u_scale:.3e} (limits {STEP0_GRAD_REL:g} of each)')
+        _check(g_scale > 0 and g_err <= STEP0_GRAD_REL * g_scale,
+               f'path F: resumed gradient {name}')
+        _check(u_err <= STEP0_GRAD_REL * u_scale,
+               f'path F: resumed update {name}')
+
+
+def pf_read_back(logdir, logged, dev):
+    """TimelapseParser finds both categories and their timestamps; the
+    vertices and points of the last sample read back bit for bit."""
+    parser = TimelapseParser(logdir)
+    times = [float(t) for t in range(0, PF_STEPS, PF_LOG_EVERY)]
+    found = {k: [(b['category'], b['id']) for b in parser.dir_info[k]]
+             for k in ('mesh', 'pointcloud')}
+    stamps = {k: parser.get_timestamps(k, 'fit', 0) for k in found}
+    last = max(logged)
+    m = usd.import_mesh(parser.get_file_path('mesh', 'fit', 0), '/mesh_0',
+                        time=last, device=dev)
+    pc = usd.import_pointcloud(parser.get_file_path('pointcloud', 'fit', 0),
+                               '/pointcloud_0', time=last, device=dev)
+    v_ok = _bits_equal(m.vertices.cpu(), logged[last][0])
+    p_ok = _bits_equal(pc.points.cpu(), logged[last][1])
+    print(f'path F Timelapse read back: {found}, timestamps {stamps}; '
+          f'iteration {last}: vertices bit-equal {v_ok}, points bit-equal '
+          f'{p_ok}')
+    _check(all(v == [('fit', 0)] for v in found.values()),
+           'path F: TimelapseParser finds the mesh and the point cloud')
+    _check(all(s == times for s in stamps.values()),
+           'path F: Timelapse timestamps')
+    _check(v_ok and p_ok, 'path F: Timelapse read back bit-equal')
+
+
+def pf_occupancy(verts, faces, batches):
+    """The MISE occupancy: check_sign(use_hash=True) of the fitted mesh,
+    -1 inside, 1 outside; each query batch kept in ``batches``."""
+    def sdf(x):
+        batches.append(x)
+        inside = check_sign(verts, faces, x[None], use_hash=True,
+                            hash_resolution=PF_HASH_RES)[0]
+        return 1. - 2. * inside.float()
+    return sdf
+
+
+def pf_extract(params, faces, dev, tmp):
+    """MISE at 257^3 over the fitted mesh on the card and on the CPU; the
+    hash stages timed on each level's query points; hash against the
+    vectorised test on 100,000 query points; marching cubes and two USD
+    round trips."""
+    verts = params.vertices.detach()[None]
+    batches = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = sdf_to_voxelgrids([pf_occupancy(verts, faces, batches)],
+                             device=dev, **PF_MISE)
+    torch.cuda.synchronize()
+    mise_ms = (time.perf_counter() - t0) * 1e3
+    counts = [x.shape[0] for x in batches]
+    t0 = time.perf_counter()
+    grid_cpu = sdf_to_voxelgrids(
+        [pf_occupancy(verts.cpu(), faces.cpu(), [])], device='cpu',
+        **PF_MISE)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(grid.cpu(), grid_cpu)
+    side = PF_MISE['init_res'] * 2 ** PF_MISE['upsampling_steps'] + 1
+    print(f'path F MISE: {side}^3 grid over the fitted mesh, query points '
+          f'per level {counts} (of {side ** 3} grid points), '
+          f'{int(grid.sum())} inside; on the card {mise_ms:.1f} ms (host '
+          f'clock, MISE on the host, check_sign on the card), on the CPU '
+          f'{cpu_ms:.1f} ms; card grid equal to the CPU grid: {same}')
+    _check(grid.shape == (1, side, side, side), 'path F: MISE grid shape')
+    _check(0 < int(grid.sum()) < grid.numel(), 'path F: MISE grid occupied')
+    _check(same, 'path F: MISE grid card vs CPU')
+
+    # the hash stages, replayed on each level's query points
+    tris = verts[0][faces]
+    tris_xy = tris[:, :, :2].cpu().numpy().astype(np.float64)
+    stages = dict(build=0., query=0., device_test=0.)
+    pairs = 0
+    for x in batches:
+        t0 = time.perf_counter()
+        th = _native.TriangleHash(tris_xy, PF_HASH_RES)
+        t1 = time.perf_counter()
+        pidx, tidx = th.query(x[:, :2].cpu().numpy().astype(np.float64))
+        t2 = time.perf_counter()
+        stages['build'] += (t1 - t0) * 1e3
+        stages['query'] += (t2 - t1) * 1e3
+        pidx = torch.as_tensor(pidx, device=dev)
+        tidx = torch.as_tensor(tidx, device=dev)
+        pairs += pidx.shape[0]
+        stages['device_test'] += time_ms(
+            lambda: _hash_parity(tris, x, pidx, tidx), 1, warmup=0)
+    print(f'path F hash stages over the {len(batches)} levels '
+          f'({sum(counts)} points, {pairs} candidate pairs): hash build '
+          f'{stages["build"]:.1f} ms, hash queries (with the xy copy to the '
+          f'host) {stages["query"]:.1f} ms (host clock), device test '
+          f'{stages["device_test"]:.3f} ms (CUDA events)')
+
+    # hash against the vectorised test, but in the surface's shell
+    pts = torch.cat(batches)
+    pick = np.random.default_rng(PF_SEED).choice(
+        pts.shape[0], min(PF_PARITY_POINTS, pts.shape[0]), replace=False)
+    sub = pts[torch.as_tensor(pick, device=dev)][None]
+    h = check_sign(verts, faces, sub, use_hash=True,
+                   hash_resolution=PF_HASH_RES)[0]
+    vec = check_sign(verts, faces, sub)[0]
+    d2 = point_to_mesh_distance(sub, verts[:, faces])[0][0]
+    shell = d2.sqrt() <= PF_SHELL
+    differ = h != vec
+    print(f'path F hash vs vectorised check_sign on {sub.shape[1]} MISE '
+          f'query points: {int(differ.sum())} differ, all within '
+          f'{PF_SHELL:g} of the surface: '
+          f'{bool((shell | ~differ).all())} ({int(shell.sum())} points in '
+          f'the shell)')
+    _check(bool((shell | ~differ).all()),
+           'path F: hash equals vectorised off the shell')
+
+    # marching cubes, then the USD round trips
+    t = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mv, mf = voxelgrids_to_trianglemeshes(grid)
+    torch.cuda.synchronize()
+    t['marching_cubes'] = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(tmp, 'extracted.usda')
+    t0 = time.perf_counter()
+    usd.export_mesh(path, vertices=mv[0], faces=mf[0])
+    t['export_mesh'] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = usd.import_mesh(path, device=dev)
+    torch.cuda.synchronize()
+    t['import_mesh'] = (time.perf_counter() - t0) * 1e3
+    mesh_ok = (_bits_equal(back.vertices, mv[0])
+               and torch.equal(back.faces, mf[0].long()))
+    surf = extract_surface(grid)[0]
+    tl = Timelapse(os.path.join(tmp, 'extract'))
+    t0 = time.perf_counter()
+    tl.add_voxelgrid_batch(iteration=PF_STEPS, category='surface',
+                           voxelgrid_list=[surf])
+    t['add_voxelgrid_batch'] = (time.perf_counter() - t0) * 1e3
+    vg_path = TimelapseParser(tl.logdir).get_file_path('voxelgrid',
+                                                       'surface', 0)
+    t0 = time.perf_counter()
+    vg = usd.import_voxelgrid(vg_path, '/voxelgrid_0', time=PF_STEPS,
+                              device=dev)
+    torch.cuda.synchronize()
+    t['import_voxelgrid'] = (time.perf_counter() - t0) * 1e3
+    vg_ok = torch.equal(vg, surf.bool())
+    print(f'path F USD round trips: marching cubes {mv[0].shape[0]} '
+          f'vertices, {mf[0].shape[0]} faces ({os.path.getsize(path)} bytes '
+          f'of USDA) export_mesh -> import_mesh bit-equal: {mesh_ok}; '
+          f'extract_surface {int(surf.sum())} voxels -> add_voxelgrid_batch '
+          f'-> import_voxelgrid equal: {vg_ok}; times (ms, host clock): '
+          + ', '.join(f'{k} {v:.1f}' for k, v in t.items()))
+    _check(mesh_ok, 'path F: USD mesh round trip')
+    _check(vg_ok, 'path F: Timelapse voxel grid round trip')
+    return mise_ms
+
+
+def path_f(dev, card):
+    """Phase 22: path F, a DIB-R fit that logs a Timelapse, resumes from a
+    checkpoint and ends in a MISE occupancy extraction."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = pf_import(dev, tmp)
+        scene = make_scene(dev, height=HEIGHT, views=VIEWS,
+                           texture_res=TEXTURE_RES, mesh=mesh)
+        # K1 and K2 against their plain versions on the first step's
+        # inputs, one of the 4 views (not counted as path launches)
+        vt, tr, ctr, cbb = kernel_inputs(scene)
+        one = tuple(x[:1].contiguous() for x in (vt, tr, ctr, cbb))
+        fid, prod, k1_err = check_forward(scene, one)
+        _, k2_err = check_backward(scene, one, fid, prod)
+        del vt, tr, ctr, cbb, one, fid, prod
+        logdir = os.path.join(tmp, 'timelapse')
+        tl = Timelapse(logdir)
+        for k in FU.LAUNCHES:
+            FU.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = {}
+
+        def fit():
+            result['fit'] = pf_fit(scene, mesh, tl,
+                                   os.path.join(tmp, 'ckpt'))
+
+        idle = step_profile(fit, card, steps=1)
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(FU.LAUNCHES)
+        losses, logged, t_log, resume = result['fit']
+        print(f'path F fit: {PF_STEPS} Adam steps (fused, {VIEWS} views, '
+              f'{HEIGHT}^2, texture {TEXTURE_RES}^2) from the imported '
+              f'sphere perturbed by 0.05 N(0, 1): loss {losses[0]:.6f} -> '
+              f'{losses[-1]:.6f}; K1/K2 launches {launches} (the loop and '
+              f'the resumed step); {fit_ms:.1f} ms for the whole fit with '
+              f'logging and the checkpoint, under the profiler (host '
+              f'clock), card idle share {idle:.3f}')
+        _check(losses[-1] < losses[0], 'path F: the loss falls')
+        _check(launches['fwd'] >= PF_STEPS + 1
+               and launches['bwd'] >= PF_STEPS + 1,
+               'path F: K1 and K2 on every step')
+        print('path F Timelapse writes (ms, host clock: mesh, point cloud): '
+              + ', '.join(f'iteration {k} {a:.1f} / {b:.1f}'
+                          for k, (a, b) in t_log.items()))
+        pf_check_resume(resume)
+        pf_read_back(logdir, logged, dev)
+        step_ms = time_ms(lambda: _step(scene, scene['params']), 3)
+        mise_ms = pf_extract(scene['params'], scene['faces'], dev, tmp)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[{card}] path F: step {step_ms:.3f} ms (CUDA events, fused, '
+          f'{VIEWS} views, {HEIGHT}^2, after the fit); MISE '
+          f'{mise_ms:.1f} ms (host clock); peak device memory {peak:.3f} '
+          f'GiB')
+    return dict(launches=launches, k1_err=k1_err, k2_err=k2_err,
+                step_ms=step_ms, idle=idle, peak=peak)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is '
@@ -2614,23 +3053,33 @@ def main():
     torch.cuda.empty_cache()
     path_e(dev, card)
     phase('21: path E (occupancy evaluation)')
+    torch.cuda.empty_cache()
+    path_f_out = path_f(dev, card)
+    phase('22: path F (DIB-R fit with Timelapse and checkpoint, MISE '
+          'through the triangle hash)')
 
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
     trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cu'
     kernels = [
         dict(name='fused_forward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:232',
-             launches=launches['fwd'] + path_c_out['launches'],
+             launches=(launches['fwd'] + path_c_out['launches']
+                       + path_f_out['launches']['fwd']),
              path_launches={'dibr': launches['fwd'],
-                            'path_c': path_c_out['launches']},
-             max_abs_err=max(k1_err, path_c_out['k1_err']),
+                            'path_c': path_c_out['launches'],
+                            'path_f': path_f_out['launches']['fwd']},
+             max_abs_err=max(k1_err, path_c_out['k1_err'],
+                             path_f_out['k1_err']),
              ms=t['k1_ms'], plain_ms=t['k1_plain_ms'],
              **_bound(k1_b, k1_f), library_ms=None,
              path_c_ms=path_c_out['k1_ms'],
              path_c_plain_ms=path_c_out['k1_plain_ms']),
         dict(name='fused_backward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:386',
-             launches=launches['bwd'], max_abs_err=k2_err,
+             launches=launches['bwd'] + path_f_out['launches']['bwd'],
+             path_launches={'dibr': launches['bwd'],
+                            'path_f': path_f_out['launches']['bwd']},
+             max_abs_err=max(k2_err, path_f_out['k2_err']),
              ms=t['k2_ms'], plain_ms=t['k2_plain_ms'],
              **_bound(k2_b, k2_f), library_ms=None),
         dict(name='spc_trace_kernel', route='cuda', source=trace_src,

@@ -23,7 +23,14 @@ tetmesh ops, losses and marching tetrahedra; slice 7, the rest of the SPC
 ops (query, dense grids, dual, trinkets, trilinear interpolation), the
 sparse convolutions (:mod:`kaolin_tpu_torch.ops.spc.convolution`), the
 pointcloud and mesh voxel grids and the Camera API
-(:mod:`kaolin_tpu_torch.render.camera`).
+(:mod:`kaolin_tpu_torch.render.camera`); slice 8, lighting, the mesh and
+point-cloud metrics, sampling, ``check_sign``, the voxel-grid ops and
+marching cubes; slice 9, the native host layer
+(:mod:`kaolin_tpu_torch._native`: the triangle hash, MISE and the OBJ
+tokenizer, C++ built with ``g++`` at first use), USD I/O
+(:mod:`kaolin_tpu_torch.io.usd`), OFF, ``sdf_to_voxelgrids``,
+:class:`~kaolin_tpu_torch.visualize.Timelapse` and training-state
+checkpoints (:mod:`kaolin_tpu_torch.utils.checkpoint`).
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,13 @@
 """Material model: PBR (USD Preview Surface style) materials.
 
-Port of ``kaolin_tpu/io/materials.py`` as far as
-:func:`kaolin_tpu_torch.io.obj.import_mesh` needs it: the error classes,
-:class:`PBRMaterial` (values and textures; its USD reader and writer are
-not ported) and :func:`process_materials_and_assignments`.
+Port of ``kaolin_tpu/io/materials.py``: the error classes,
+:class:`PBRMaterial` (values, textures, and its USD writer and reader over
+:mod:`kaolin_tpu_torch.io.usd.materials`), :class:`MaterialManager` (the
+registry of material readers) and :func:`process_materials_and_assignments`.
 """
 
+import inspect
+import os
 import warnings
 
 import numpy as np
@@ -13,7 +15,8 @@ import numpy as np
 __all__ = [
     'MaterialError', 'MaterialNotSupportedError', 'MaterialLoadError',
     'MaterialWriteError', 'MaterialFileError', 'MaterialNotFoundError',
-    'Material', 'PBRMaterial', 'process_materials_and_assignments',
+    'Material', 'PBRMaterial', 'MaterialManager',
+    'process_materials_and_assignments',
 ]
 
 
@@ -96,6 +99,24 @@ class PBRMaterial(Material):
             raise TypeError(
                 f"unexpected PBRMaterial parameters: {sorted(kwargs)}")
 
+    def write_to_usd(self, file_path, scene_path, bound_prims=None,
+                     time=None, texture_dir='', texture_file_prefix='',
+                     shader='UsdPreviewSurface'):
+        """Write this material as a Material prim of a USD(A) file."""
+        from kaolin_tpu_torch.io.usd import materials as usd_materials
+        return usd_materials.export_material(
+            self, file_path, scene_path, bound_prims=bound_prims, time=time,
+            texture_dir=texture_dir, texture_file_prefix=texture_file_prefix)
+
+    def read_from_usd(self, file_path, scene_path, texture_path=None,
+                      time=None, device=None):
+        """The material of a Material prim of a USD(A) file (a new
+        PBRMaterial, textures on ``device``, default: the card)."""
+        from kaolin_tpu_torch.io.usd import materials as usd_materials
+        return usd_materials.import_material(
+            file_path, scene_path, texture_path=texture_path, time=time,
+            device=device)
+
     def __repr__(self):
         set_textures = [t for t in _PBR_TEXTURES
                         if getattr(self, t) is not None]
@@ -161,3 +182,73 @@ def process_materials_and_assignments(materials_dict,
         else:
             material_assignments[values] = mat_idx
     return materials, material_assignments
+
+
+class MaterialManager:
+    """Registry mapping shader names to material reader functions.
+
+    USD import functions use it to pick a reader for a material's shader
+    id; :meth:`read_from_file` reads ``UsdPreviewSurface`` materials through
+    :func:`kaolin_tpu_torch.io.usd.materials.import_material`.
+
+    Example:
+        >>> dummy_reader = lambda params, texture_path, time: Material('x')
+        >>> MaterialManager.register_usd_reader('MyCustomPBR', dummy_reader)
+    """
+    _usd_readers = {}
+    _obj_reader = None
+
+    @classmethod
+    def register_usd_reader(cls, shader_name, reader_fn):
+        """Register ``reader_fn(params, texture_path, time)`` for a
+        shader."""
+        if shader_name in cls._usd_readers:
+            warnings.warn(f'Shader {shader_name} is already registered. '
+                          'Overwriting previous definition.')
+        if not callable(reader_fn):
+            raise MaterialLoadError(
+                'The supplied `reader_fn` must be a callable function.')
+        if len(inspect.signature(reader_fn).parameters) != 3:
+            raise ValueError(
+                'Error encountered when validating supplied `reader_fn`. '
+                'Ensure that the function takes 3 arguments: parameters '
+                '(dict), texture_path (string) and time (float)')
+        cls._usd_readers[shader_name] = reader_fn
+
+    @classmethod
+    def register_obj_reader(cls, reader_fn):
+        """Register a reader used for ``.obj`` material files."""
+        if not callable(reader_fn):
+            raise MaterialLoadError(
+                'The supplied `reader_fn` must be a callable function.')
+        cls._obj_reader = reader_fn
+
+    @classmethod
+    def read_from_file(cls, file_path, scene_path=None, texture_path=None,
+                       time=None, device=None):
+        """Read a material from a USD(A) file (textures on ``device``,
+        default: the card) or, through the registered reader, an OBJ
+        file."""
+        ext = os.path.splitext(file_path)[1]
+        if ext in ('.usd', '.usda', '.usdc'):
+            if scene_path is None:
+                raise MaterialLoadError(
+                    f'The scene_path `{scene_path}` provided is invalid.')
+            if texture_path is None:
+                texture_file_path = os.path.dirname(file_path)
+            elif not os.path.isabs(texture_path):
+                texture_file_path = os.path.join(
+                    os.path.dirname(file_path), texture_path)
+            else:
+                texture_file_path = texture_path
+            from kaolin_tpu_torch.io.usd import materials as usd_materials
+            return usd_materials.import_material(
+                file_path, scene_path, texture_path=texture_file_path,
+                time=time, device=device)
+        elif ext == '.obj':
+            if cls._obj_reader is not None:
+                return cls._obj_reader(file_path)
+            raise MaterialNotSupportedError(
+                'No registered .obj material reader found.')
+        raise MaterialNotSupportedError(
+            f'Unsupported material file extension {ext!r}')

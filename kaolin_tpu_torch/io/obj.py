@@ -1,11 +1,13 @@
 """OBJ/MTL mesh importer.
 
-Port of ``kaolin_tpu/io/obj.py``.  Host-side parsing in Python and numpy;
-returns a :class:`kaolin_tpu_torch.rep.SurfaceMesh` of tensors on the
-card unless asked for another device.  The JAX package's native fast path
-(its C++ tokenizer) is not ported: this parse gives the same arrays, and
-without materials it follows that path's rule for non-triangle meshes (a
-given ``heterogeneous_mesh_handler`` also triangulates a mesh of quads).
+Port of ``kaolin_tpu/io/obj.py``; returns a
+:class:`kaolin_tpu_torch.rep.SurfaceMesh` of tensors on the card unless
+asked for another device.  Without materials the file goes through the
+native tokenizer (:func:`kaolin_tpu_torch._native.parse_obj`, the JAX
+package's ``csrc/obj_parser.cpp``), which rounds each decimal once,
+straight to float32, and a given ``heterogeneous_mesh_handler`` then also
+triangulates a mesh of quads.  With materials the parse is Python and
+numpy, as in the JAX package.
 """
 
 import os
@@ -14,6 +16,7 @@ import warnings
 import numpy as np
 import torch
 
+from kaolin_tpu_torch import _native
 from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.io.materials import (
     MaterialFileError, MaterialLoadError, MaterialNotFoundError, PBRMaterial,
@@ -64,7 +67,7 @@ def flatten_feature(feature):
     return [item for sublist in feature for item in sublist]
 
 
-def _parse(path, with_materials, error_handler):
+def _parse(path, error_handler):
     """One pass over the OBJ text: vertices, uvs, normals, per-face index
     lists, materials (``mtllib``) and ``usemtl`` face ranges."""
     vertices, uvs, normals = [], [], []
@@ -106,10 +109,10 @@ def _parse(path, with_materials, error_handler):
                     face_uvs_idx.append(fuv)
                 if fn:
                     face_normals_idx.append(fn)
-            elif key == 'usemtl' and with_materials:
+            elif key == 'usemtl':
                 close_range()
                 active[0] = ' '.join(tokens[1:])
-            elif key == 'mtllib' and with_materials:
+            elif key == 'mtllib':
                 mats = load_mtl(os.path.join(os.path.dirname(path),
                                              ' '.join(tokens[1:])),
                                 error_handler)
@@ -146,16 +149,14 @@ def import_mesh(path, with_materials=False, with_normals=False,
     device = entry_device(device)
     if error_handler is None:
         error_handler = default_error_handler
-    # without materials the JAX package takes its native path, which calls
-    # a given handler on any non-triangle mesh
-    wants_triangles = triangulate or (
-        not with_materials and heterogeneous_mesh_handler is not None)
     if heterogeneous_mesh_handler is None and triangulate:
         heterogeneous_mesh_handler = mesh_handler_naive_triangulate
+    if not with_materials:
+        return _mesh_from_native(_native.parse_obj(path), with_normals,
+                                 heterogeneous_mesh_handler, path, device)
 
     (vertices, uvs, normals, faces, face_uvs_idx, face_normals_idx, counts,
-     mtl_materials, assignments) = _parse(path, with_materials,
-                                          error_handler)
+     mtl_materials, assignments) = _parse(path, error_handler)
     vertices = np.asarray(vertices, dtype=np.float32).reshape(-1, 3)
     counts = np.asarray(counts, dtype=np.int64)
     uvs = np.asarray(uvs, dtype=np.float32).reshape(-1, 2) if uvs else None
@@ -176,18 +177,17 @@ def import_mesh(path, with_materials=False, with_normals=False,
             0 if normals is None else len(normals))
 
     heterogeneous = counts.size > 0 and not (counts == counts[0]).all()
-    if heterogeneous or (wants_triangles and counts.size > 0
-                         and counts[0] != 3):
+    if heterogeneous or (triangulate and counts.size > 0
+                         and not (counts == 3).all()):
         if heterogeneous_mesh_handler is None:
             raise NonHomogeneousMeshError(
                 f"Mesh at {path} is non-homogeneous and no "
                 f"heterogeneous_mesh_handler was provided")
         ranges = ({k: np.asarray(v) for k, v in assignments.items()}
                   if assignments else None)
-        # the native path calls the handler without face_assignments
-        kw = {'face_assignments': ranges} if with_materials else {}
         result = heterogeneous_mesh_handler(vertices, counts,
-                                            *feats.values(), **kw)
+                                            *feats.values(),
+                                            face_assignments=ranges)
         if result is None:
             return None
         vertices = result[0]
@@ -200,13 +200,11 @@ def import_mesh(path, with_materials=False, with_normals=False,
         feats = {k: v.reshape(-1, size) for k, v in feats.items()}
         assignments = {k: np.asarray(v) for k, v in assignments.items()}
 
-    materials = material_assignments = None
-    if with_materials:
-        materials, material_assignments = process_materials_and_assignments(
-            mtl_materials, assignments, error_handler,
-            feats['faces'].shape[0], error_context_str=path)
-        if not raw_materials:
-            materials = [_mtl_to_pbr(m, device) for m in materials]
+    materials, material_assignments = process_materials_and_assignments(
+        mtl_materials, assignments, error_handler, feats['faces'].shape[0],
+        error_context_str=path)
+    if not raw_materials:
+        materials = [_mtl_to_pbr(m, device) for m in materials]
 
     def t(a):
         return torch.as_tensor(np.asarray(a), device=device)
@@ -220,9 +218,61 @@ def import_mesh(path, with_materials=False, with_normals=False,
         kwargs['normals'] = t(normals)
         if 'face_normals_idx' in feats:
             kwargs['face_normals_idx'] = t(feats['face_normals_idx'])
-    if material_assignments is not None:
-        kwargs['material_assignments'] = t(material_assignments)
+    kwargs['material_assignments'] = t(material_assignments)
     return SurfaceMesh(materials=materials, batching=SurfaceMesh.Batching.NONE,
+                       strict_checks=False, **kwargs)
+
+
+def _mesh_from_native(parsed, with_normals, heterogeneous_mesh_handler, path,
+                      device):
+    """A SurfaceMesh on ``device`` from the native tokenizer's raw output,
+    as the JAX package's ``_mesh_from_native`` assembles it: a given handler
+    is called (without face assignments) on any non-triangle mesh."""
+    vertices = parsed['vertices']
+    uvs = parsed['uvs'] if parsed['uvs'].size else None
+    normals = parsed['normals'] if parsed['normals'].size else None
+    counts = parsed['face_counts']
+
+    def fix(flat, count):
+        return np.where(flat < 0, flat + count, flat - 1)
+
+    feats = {'faces': fix(parsed['face_v'], len(vertices))}
+    if uvs is not None and (parsed['face_vt'] != 0).any():
+        feats['face_uvs_idx'] = fix(parsed['face_vt'], len(uvs))
+    if (with_normals and normals is not None
+            and (parsed['face_vn'] != 0).any()):
+        feats['face_normals_idx'] = fix(parsed['face_vn'], len(normals))
+
+    heterogeneous = counts.size > 0 and not (counts == counts[0]).all()
+    if heterogeneous or (counts.size and counts[0] != 3
+                         and heterogeneous_mesh_handler is not None):
+        if heterogeneous_mesh_handler is None:
+            raise NonHomogeneousMeshError(
+                f"Mesh at {path} is non-homogeneous and no "
+                f"heterogeneous_mesh_handler was provided")
+        result = heterogeneous_mesh_handler(vertices, counts, *feats.values())
+        if result is None:
+            return None
+        vertices, counts = result[0], result[1]
+        feats = {k: np.asarray(v).reshape(-1)
+                 for k, v in zip(feats, result[2:2 + len(feats)])}
+    size = int(counts[0]) if counts.size else 3
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    kwargs = dict(vertices=t(vertices),
+                  faces=t(feats['faces'].reshape(-1, size)))
+    if uvs is not None:
+        kwargs['uvs'] = t(uvs)
+        if 'face_uvs_idx' in feats:
+            kwargs['face_uvs_idx'] = t(feats['face_uvs_idx'].reshape(-1, size))
+    if with_normals and normals is not None:
+        kwargs['normals'] = t(normals)
+        if 'face_normals_idx' in feats:
+            kwargs['face_normals_idx'] = t(
+                feats['face_normals_idx'].reshape(-1, size))
+    return SurfaceMesh(batching=SurfaceMesh.Batching.NONE,
                        strict_checks=False, **kwargs)
 
 

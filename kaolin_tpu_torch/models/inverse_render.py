@@ -22,9 +22,17 @@ from kaolin_tpu_torch.render import camera as camera_fns
 from kaolin_tpu_torch.render import mesh as mesh_render
 from kaolin_tpu_torch.render.mesh.rasterization import _resolve_backend
 
-__all__ = ['InverseRender', 'CameraViews', 'make_views', 'render_views',
-           'render_loss', 'init_params', 'compute_selection',
-           'from_jax_params']
+__all__ = ['InverseRender', 'InverseRenderParams', 'CameraViews',
+           'make_views', 'render_views', 'render_loss', 'init_params',
+           'compute_selection', 'from_jax_params']
+
+
+class InverseRenderParams(NamedTuple):
+    """The model's parameters as the JAX package's NamedTuple (the same
+    fields in the same order): the state a checkpoint holds."""
+    vertices: torch.Tensor       # (V, 3)
+    texture_map: torch.Tensor    # (3, TH, TW)
+    sh_coeffs: torch.Tensor      # (9,)
 
 
 class InverseRender(nn.Module):
@@ -35,6 +43,18 @@ class InverseRender(nn.Module):
         self.vertices = nn.Parameter(vertices)          # (V, 3)
         self.texture_map = nn.Parameter(texture_map)    # (3, TH, TW)
         self.sh_coeffs = nn.Parameter(sh_coeffs)        # (9,)
+
+    def as_params(self):
+        """The parameters as an :class:`InverseRenderParams` (the
+        module's own tensors, not copies)."""
+        return InverseRenderParams(self.vertices, self.texture_map,
+                                   self.sh_coeffs)
+
+    def load_params(self, params):
+        """Copy an :class:`InverseRenderParams` into the parameters."""
+        with torch.no_grad():
+            for name, value in zip(params._fields, params):
+                getattr(self, name).copy_(value)
 
 
 class CameraViews(NamedTuple):

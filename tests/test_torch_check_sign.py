@@ -7,8 +7,8 @@ out by rounding: the face plane's z there equals the point's up to the
 last bit, which XLA's fused multiply-adds on the JAX side decide
 otherwise than the port's separate products (ROADMAP.md section 3); those
 points are held to the port's own answer being a valid bool only.
-``use_hash=True`` raises (the native triangle hash is not ported) rather
-than falling back.
+``use_hash=True`` (the native triangle hash) is held against the JAX
+package in ``test_torch_native_io.py``.
 """
 import importlib
 
@@ -64,10 +64,12 @@ def test_unbatched_and_crossings(scene):
             jnp.asarray(fv[:, k]) for k in range(3)])))
 
 
-def test_use_hash_raises(scene):
+@pytest.mark.parametrize('use_hash', [False, True])
+def test_shape_errors(scene, use_hash):
     verts, faces, pts = scene
-    with pytest.raises(NotImplementedError, match='item 14'):
-        cs_t.check_sign(torch.as_tensor(verts), faces, torch.as_tensor(pts),
-                        use_hash=True)
     with pytest.raises(ValueError):
-        cs_t.check_sign(torch.zeros(4, 3), faces, torch.as_tensor(pts))
+        cs_t.check_sign(torch.zeros(4, 3), faces, torch.as_tensor(pts),
+                        use_hash=use_hash)
+    with pytest.raises(ValueError):
+        cs_t.check_sign(torch.as_tensor(verts), faces, torch.zeros(4, 3),
+                        use_hash=use_hash)

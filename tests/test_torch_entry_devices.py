@@ -47,6 +47,11 @@ from kaolin_tpu_torch.ops import gcn, random as rnd, voxelgrid
 from kaolin_tpu_torch.ops.conversions import voxelgrid as vg_conv
 from kaolin_tpu_torch.ops.mesh import (adjacency_matrix, sample_points,
                                        uniform_laplacian)
+from kaolin_tpu_torch.io import off, usd
+from kaolin_tpu_torch.io import obj as obj_io
+from kaolin_tpu_torch.ops.conversions import sdf_to_voxelgrids
+from kaolin_tpu_torch.ops.mesh.check_sign import check_sign
+from kaolin_tpu_torch.utils import checkpoint, profiler
 
 LEVEL = 3
 
@@ -85,6 +90,33 @@ def _import_mesh(device=None):
         path = write_sphere_obj(tmp, uv_sphere(8, 5))
         return import_mesh(path, with_materials=True,
                            device=device).face_uvs
+
+
+def _usd(write, read):
+    """``write(path)`` a .usda file, then ``read(path)`` it back."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f'{tmp}/x.usda'
+        write(path)
+        return read(path)
+
+
+def _off(device=None):
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(f'{tmp}/x.off', 'w') as f:
+            f.write('OFF\n3 1 0\n0 0 0\n1 0 0\n0 1 0\n3 0 1 2\n')
+        return off.import_mesh(f'{tmp}/x.off', device=device).vertices
+
+
+def _obj_native(device=None):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_sphere_obj(tmp, uv_sphere(8, 5))
+        return obj_io.import_mesh(path, device=device).vertices
+
+
+def _npz(device=None):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save_npz(f'{tmp}/x.npz', {'a': torch.ones(2)})
+        return checkpoint.load_npz(path, device=device)['a']
 
 
 def _tets(device=None):
@@ -227,6 +259,26 @@ ENTRY = {
     'gcn.from_jax_params': lambda device=None: gcn.from_jax_params(
         {'linear': {'kernel': np.ones((2, 3))}},
         device=device)['linear.weight'],
+    # slice 9
+    'import_mesh (native)': _obj_native,
+    'off.import_mesh': _off,
+    'usd.import_mesh': lambda device=None: _usd(
+        lambda p: usd.export_mesh(p, vertices=np.eye(3), faces=[[0, 1, 2]]),
+        lambda p: usd.import_mesh(p, device=device).vertices),
+    'usd.import_pointcloud': lambda device=None: _usd(
+        lambda p: usd.export_pointcloud(p, np.eye(3)),
+        lambda p: usd.import_pointcloud(
+            p, '/World/PointClouds/pointcloud_0', device=device).points),
+    'usd.import_voxelgrid': lambda device=None: _usd(
+        lambda p: usd.export_voxelgrid(p, _GRID[0, 0]),
+        lambda p: usd.import_voxelgrid(
+            p, '/World/VoxelGrids/voxelgrid_0', device=device)),
+    'sdf_to_voxelgrids': lambda device=None: sdf_to_voxelgrids(
+        [lambda x: x.norm(dim=-1) - 0.3], init_res=4, device=device),
+    'check_sign(use_hash=True)': lambda device=None: check_sign(
+        _Mesh.vertices[None], uv_sphere(8, 5).faces,
+        np.zeros((1, 4, 3), np.float32), use_hash=True, device=device),
+    'load_npz': _npz,
 }
 
 
@@ -254,6 +306,18 @@ def test_tensor_inputs_keep_their_device():
     assert hits.t_near.device.type == 'cpu' and int(hits.count.sum()) > 0
     ridx = unbatched_raytrace(t[0], t[1], pyr, t[2], t[3], t[4], LEVEL)[0]
     assert ridx.device.type == 'cpu' and ridx.numel() > 0
+
+
+def test_slice9_tensor_inputs_keep_their_device():
+    s = uv_sphere(8, 5)
+    inside = check_sign(torch.as_tensor(s.vertices[None] * 0.4), s.faces,
+                        torch.full((1, 3, 3), 0.01), use_hash=True)
+    assert inside.device.type == 'cpu' and bool(inside.all())
+    r = profiler.benchmark(lambda: torch.ones(2), iters=2, device='cpu')
+    assert r['out'].device.type == 'cpu'
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            profiler.benchmark(lambda: torch.ones(2), iters=2)
 
 
 def test_slice8_tensor_inputs_keep_their_device():

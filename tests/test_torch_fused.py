@@ -228,6 +228,13 @@ def test_port_imports_no_jax():
             'from kaolin_tpu_torch.ops.conversions import _mcube, voxelgrid; '
             'from kaolin_tpu_torch.metrics import pointcloud, trianglemesh, '
             'voxelgrid; '
+            'from kaolin_tpu_torch import _native, visualize; '
+            'from kaolin_tpu_torch.io import off, usd; '
+            'from kaolin_tpu_torch.io.usd import materials, mesh, pointcloud, '
+            'usda, utils, voxelgrid; '
+            'from kaolin_tpu_torch.ops.conversions import sdf; '
+            'from kaolin_tpu_torch.visualize import timelapse; '
+            'from kaolin_tpu_torch.utils import checkpoint, profiler; '
             'bad = [m for m in sys.modules '
             "if m == 'jax' or m.startswith(('jax.', 'kaolin_tpu.'))]; "
             'print(bad); sys.exit(1 if bad else 0)')
