@@ -174,6 +174,34 @@ checkpoints around the DIB-R cell (plain PyTorch, host C++ and K1/K2):
     ``import_mesh`` and ``extract_surface`` through ``add_voxelgrid_batch``
     -> ``import_voxelgrid``, each bit-equal; times, peak memory.
 
+The datasets, synthetic-view import, dash3d, the visualizers and the
+examples (plain PyTorch and host code, K1/K2 on the fit and the frames, K3
+in the SPC example):
+
+23. path G: a ShapeNetCore V2 tree of 2 synsets x 3 models, each the
+    10,000-face sphere deformed by a seeded low-frequency field, written as
+    OBJ + MTL (and a ModelNet tree of 2 OFF models, a SHREC16 tree of 2
+    OBJ models); ``ShapeNetV2(train=True, split=0.67)`` ->
+    ``ProcessedDataset`` (mesh -> vertices, faces, face uvs) ->
+    ``CachedDataset(save_on_disk=True)`` with 2 spawned workers, then again
+    over the same cache (the base getter called once, the probe);
+    ``CombinationDataset`` of ModelNet and SHREC16; a ``DataLoader`` (2
+    workers, pinned memory) onto the card; each training model's 4 views
+    at 512^2 through K1, written as synthetic views (silhouette, linear
+    depth, camera metadata) and read back with ``import_synthetic_view``
+    onto the card, the cameras taken from the metadata; 10 Adam steps
+    fitting a sphere to model 0's silhouettes (soft mask through K1 and
+    K2, ``mask_iou``) and depths (L1), a ``Timelapse`` of the mesh and of
+    10,000 samples every 5 steps; K1 and K2 against their plain versions
+    on the first step's inputs, step 0 at 128^2 against the CPU; the
+    Timelapse through ``StreamingGeometryHelper`` (every message decoded
+    bit-equal to what was logged); ``IpyTurntableVisualizer`` and
+    ``IpyFirstPersonVisualizer`` frames of the fitted mesh through K1 after
+    8 rotate / zoom events and 4 moves, the first frame's K1 launch held
+    against plain; the five examples' ``main([...])`` on the card at
+    ``tests/test_examples.py``'s sizes, every K1, K2 and K3 launch they
+    make held against its plain version on the inputs it was given.
+
 Each phase prints its seconds, and the script its total.
 
 Every kernel of the ``kernels`` line carries its time, its plain
@@ -187,6 +215,10 @@ line of its output is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels.
 """
 
+import contextlib
+import importlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -255,9 +287,23 @@ from kaolin_tpu_torch.render.lighting import (sg_diffuse_inner_product,
 from kaolin_tpu_torch.render.mesh import rasterize, texture_mapping
 from kaolin_tpu_torch.utils import measure
 from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
-from kaolin_tpu_torch.utils.testing import (camera_grid, punch_cell_rows,
-                                            tet_grid, uv_sphere,
-                                            write_sphere_obj)
+from kaolin_tpu_torch.utils.testing import (
+    CountedDataset, camera_grid, mesh_arrays, punch_cell_rows, tet_grid,
+    uv_sphere, write_modelnet, write_shapenet_v2, write_shrec16,
+    write_sphere_obj, write_synthetic_view)
+from kaolin_tpu_torch.experimental.dash3d.util import (
+    StreamingGeometryHelper, deserialize_arrays)
+from kaolin_tpu_torch.io.dataset import (CachedDataset, CombinationDataset,
+                                         ProcessedDataset)
+from kaolin_tpu_torch.io.modelnet import ModelNet
+from kaolin_tpu_torch.io.render import import_synthetic_view
+from kaolin_tpu_torch.io.shapenet import ShapeNetV2
+from kaolin_tpu_torch.io.shrec import SHREC16
+from kaolin_tpu_torch.metrics.render import mask_iou
+from kaolin_tpu_torch.ops.mesh import face_normals
+from kaolin_tpu_torch.render.mesh import dibr_rasterization, prepare_vertices
+from kaolin_tpu_torch.visualize.ipython import (IpyFirstPersonVisualizer,
+                                                IpyTurntableVisualizer)
 
 HEIGHT = WIDTH = 512
 VIEWS = 4
@@ -435,6 +481,11 @@ def toolchain(card):
         print(f'triton {triton.__version__} imports')
     except ImportError as exc:
         print(f'triton does not import: {exc}')
+    # path G uses neither: its views are .npy + JSON, dash3d's messages are
+    # built without the server
+    for name in ('PIL', 'tornado'):
+        found = importlib.util.find_spec(name) is not None
+        print(f'{name} {"is" if found else "is not"} installed')
     names = sorted(p.stem for p in _cuda.CSRC.glob('*.cu'))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
@@ -2965,6 +3016,548 @@ def path_f(dev, card):
                 step_ms=step_ms, idle=idle, peak=peak)
 
 
+# ---------------------------------------------------------------------------
+# Path G: datasets, synthetic views, viewers and the examples
+
+PG_SYNSETS = ('02691156', '03001627')   # airplane, chair
+PG_MODELS = 3                            # per synset; 2 of 3 train
+PG_SPLIT = 0.67
+PG_WORKERS = 2
+PG_STEPS = 10
+PG_LOG_EVERY = 5            # Timelapse at iterations 0 and 5
+PG_POINTS = 10_000
+PG_SEED = 25
+PG_FIT_RADIUS = 0.45        # the fit starts from this sphere
+PG_FOVY = math.pi / 4.      # make_views' default: the DIB-R cell's
+PG_PROJ_RTOL = 1e-6         # cam_proj from the metadata against fovy's
+PG_EVENTS = 8               # turntable rotate / zoom events
+PG_VIEWER = dict(eye=(0., 0.5, 1.6), at=(0., 0., 0.), up=(0., 1., 0.),
+                 fov=math.pi / 4.)
+PG_EXAMPLES = (             # tests/test_examples.py's sizes, on the card
+    ('camera_tour', [], 'round-trip close: True'),
+    ('dibr_inverse_rendering', ['--height', '32', '--width', '32',
+                                '--num-views', '2', '--steps', '3'], 'done'),
+    ('dmtet_demo', ['--res', '4', '--steps', '2'], 'done'),
+    ('spc_raytrace_demo', ['--level', '4', '--rays', '256'],
+     'integrated features'),
+    ('sg_lighting_demo', ['--size', '32', '--steps', '3'], 'done'),
+)
+
+
+def pg_render(vertices, views, faces, height, backend='fused'):
+    """DIB-R of ``vertices`` in ``views``: (depth (B, H, W) from the
+    camera, positive; soft mask; face_idx)."""
+    B = views.camera_rot.shape[0]
+    fvc, fvi, fn = prepare_vertices(
+        vertices[None].expand(B, -1, -1), faces, views.camera_proj,
+        camera_rot=views.camera_rot, camera_trans=views.camera_trans)
+    depth, soft, fid = dibr_rasterization(
+        height, height, fvc[..., 2], fvi, -fvc[..., 2:3], fn[..., 2],
+        rast_backend=backend)
+    return depth[..., 0], soft, fid
+
+
+def pg_targets(vertices, views, faces, height):
+    """The silhouette (int32 0/1) and linear depth (0 off the mesh) of
+    ``vertices``, through K1."""
+    with torch.no_grad():
+        depth, _, fid = pg_render(vertices, views, faces, height)
+        hit = fid >= 0
+        return hit.to(torch.int32), torch.where(hit, depth, 0.)
+
+
+def pg_loss(vertices, views, faces, sil, depth, height, backend='fused'):
+    """Silhouette and depth: 1 - IoU of the soft mask (K1 forward, K2
+    backward) + the L1 of the interpolated depth where both cover."""
+    d, soft, fid = pg_render(vertices, views, faces, height, backend)
+    both = (fid >= 0) & (sil > 0)
+    l1 = (torch.where(both, (d - depth).abs(), 0.).sum()
+          / both.sum().clamp(min=1))
+    return mask_iou(soft, sil.float()) + l1
+
+
+def pg_corpus(tmp):
+    """The ShapeNetV2, ModelNet and SHREC16 trees."""
+    t0 = time.perf_counter()
+    shapenet = write_shapenet_v2(os.path.join(tmp, 'shapenet'), PG_SYNSETS,
+                                 PG_MODELS, SPHERE, PG_SEED)
+    modelnet = write_modelnet(os.path.join(tmp, 'modelnet'), ['chair'], 2,
+                              SPHERE)
+    shrec = write_shrec16(os.path.join(tmp, 'shrec16'), PG_SYNSETS[:1], 2,
+                          SPHERE)
+    ms = (time.perf_counter() - t0) * 1e3
+    size = sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(tmp) for f in fs)
+    nf = len(next(iter(shapenet.values())).faces)
+    print(f'path G corpus: ShapeNetV2 {len(PG_SYNSETS)} synsets x '
+          f'{PG_MODELS} models, ModelNet 2 OFF, SHREC16 2 OBJ, each '
+          f'uv_sphere{SPHERE} deformed ({nf} faces), {size} bytes written '
+          f'in {ms:.1f} ms (host clock)')
+    return shapenet, modelnet, shrec
+
+
+def pg_load(tmp, shapenet, modelnet, shrec, dev):
+    """ShapeNetV2 -> ProcessedDataset -> CachedDataset (spawned workers),
+    cold and warm; CombinationDataset of ModelNet and SHREC16; a DataLoader
+    onto the card.  Returns the training meshes on the card."""
+    root = os.path.join(tmp, 'shapenet')
+    base = ShapeNetV2(root, train=True, split=PG_SPLIT, device='cpu')
+    expected = [shapenet[(s, m)] for s in PG_SYNSETS
+                for m in range(int(PG_MODELS * PG_SPLIT))]
+    _check(len(base) == len(expected), 'path G: ShapeNetV2 split')
+    calls = os.path.join(tmp, 'calls')
+    cache_dir = os.path.join(tmp, 'cache')
+    t = {}
+    for run in ('cold', 'warm'):
+        log = os.path.join(calls, run)
+        counted = CountedDataset(ProcessedDataset(base, mesh_arrays), log)
+        t0 = time.perf_counter()
+        cache = CachedDataset(counted, cache_dir, save_on_disk=True,
+                              num_workers=PG_WORKERS, device='cpu')
+        t[run] = ((time.perf_counter() - t0) * 1e3,
+                  CountedDataset.calls(log))
+    print(f'path G CachedDataset (save_on_disk=True, {PG_WORKERS} spawned '
+          f'workers): cold {t["cold"][0]:.1f} ms with {t["cold"][1]} base '
+          f'getter calls, warm {t["warm"][0]:.1f} ms with {t["warm"][1]} '
+          f'(host clock; start-up times: the cold one is mostly the '
+          f'workers\' spawn and imports)')
+    _check(t['cold'][1] == len(base) + 1,
+           'path G: the cold cache calls the getter once per item + probe')
+    _check(t['warm'][1] == 1,
+           'path G: the warm cache calls the getter only for its probe')
+
+    combo = CombinationDataset([ModelNet(os.path.join(tmp, 'modelnet'),
+                                         device='cpu'),
+                                SHREC16(os.path.join(tmp, 'shrec16'),
+                                        device='cpu')])
+    ok = all(torch.equal(a['mesh'].faces, torch.as_tensor(
+        modelnet[('chair', i)].faces)) and torch.equal(
+        b['mesh'].vertices, torch.as_tensor(shrec[(PG_SYNSETS[0], i)]
+                                            .vertices))
+        for i, (a, b) in enumerate(combo))
+    print(f'path G CombinationDataset(ModelNet, SHREC16): {len(combo)} '
+          f'pairs, labels {[p[0]["label"] for p in combo]}, '
+          f'{[p[1]["synset"] for p in combo]}; meshes as written: {ok}')
+    _check(ok, 'path G: ModelNet and SHREC16 meshes as written')
+
+    loader = torch.utils.data.DataLoader(cache, batch_size=1,
+                                         num_workers=PG_WORKERS,
+                                         pin_memory=True)
+    models = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in loader:
+        models.append({k: v[0].to(dev, non_blocking=True)
+                       for k, v in batch.items()})
+    torch.cuda.synchronize()
+    dl_s = time.perf_counter() - t0
+    same = all(torch.equal(m['vertices'].cpu(), torch.as_tensor(s.vertices))
+               and torch.equal(m['faces'].cpu(), torch.as_tensor(s.faces))
+               for m, s in zip(models, expected))
+    print(f'path G DataLoader ({PG_WORKERS} workers, pin_memory, '
+          f'non_blocking copies): {len(models)} meshes in {dl_s * 1e3:.1f} '
+          f'ms (host clock; a start-up time, the workers\' spawn included, '
+          f'not a rate); equal to the written meshes: {same}')
+    _check(same and len(models) == len(expected),
+           'path G: the DataLoader gives the written meshes')
+    return models
+
+
+def pg_views(models, dev, tmp):
+    """Each model's 4 views at 512^2 through K1, written as synthetic
+    views and read back on the card; the cameras from the metadata.
+    Returns the first model's (views, silhouettes, depths)."""
+    views = M.make_views(VIEWS, fovy=PG_FOVY, device=dev)
+    t = dict(render=0., write=0., read=0.)
+    first = None
+    for j, m in enumerate(models):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sil, depth = pg_targets(m['vertices'], views, m['faces'], HEIGHT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        directory = os.path.join(tmp, 'views', str(j))
+        for i in range(VIEWS):
+            write_synthetic_view(directory, i, views.camera_rot[i],
+                                 views.camera_trans[i], PG_FOVY,
+                                 (HEIGHT, WIDTH), semantic=sil[i],
+                                 depth_linear=depth[i])
+        t2 = time.perf_counter()
+        back = [import_synthetic_view(directory, i, rgb=False,
+                                      depth_linear=True, semantic=True,
+                                      device=dev) for i in range(VIEWS)]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        t['render'] += (t1 - t0) * 1e3
+        t['write'] += (t2 - t1) * 1e3
+        t['read'] += (t3 - t2) * 1e3
+        md = [b['metadata'] for b in back]
+        cams = M.CameraViews(
+            torch.stack([x['cam_transform'][:3] for x in md]),
+            torch.stack([x['cam_transform'][3] for x in md]),
+            md[0]['cam_proj'])
+        sil_b = torch.stack([b['semantic'] for b in back])
+        depth_b = torch.stack([b['depth_linear'] for b in back])
+        proj_err = ((cams.camera_proj - views.camera_proj).abs().max()
+                    / views.camera_proj.abs().max()).item()
+        ok = (torch.equal(cams.camera_rot, views.camera_rot)
+              and torch.equal(cams.camera_trans, views.camera_trans)
+              and proj_err <= PG_PROJ_RTOL and torch.equal(sil_b, sil)
+              and torch.equal(depth_b, depth)
+              and sil_b.device.type == torch.device(dev).type)
+        _check(ok, f'path G: model {j} views and cameras read back')
+        if first is None:
+            first = (cams, sil_b, depth_b)
+            print(f'path G views: model 0 covers {sil.float().mean():.4f} '
+                  f'of {VIEWS} x {HEIGHT}^2 pixels, depth '
+                  f'{depth[sil > 0].min():.4f}..{depth.max():.4f}; cam_proj '
+                  f'from the metadata rel err {proj_err:.2e} (limit '
+                  f'{PG_PROJ_RTOL:g}), rotation and translation bit-equal')
+    n = len(models) * VIEWS
+    print(f'path G synthetic views: {n} views of {HEIGHT}^2 (semantic, '
+          f'depth_linear, metadata): render {t["render"]:.1f} ms, write '
+          f'{t["write"]:.1f} ms, import_synthetic_view onto the card '
+          f'{t["read"]:.1f} ms (host clock, all {len(models)} models)')
+    return first, t
+
+
+def pg_start(dev):
+    s = uv_sphere(*SPHERE)
+    return (torch.as_tensor(s.vertices * PG_FIT_RADIUS, device=dev),
+            torch.as_tensor(s.faces, device=dev))
+
+
+def pg_step0(model, dev):
+    """Step 0 at 128^2 and one view on the card against the CPU."""
+    H = STEP0_SIZE['height']
+    views = M.make_views(STEP0_SIZE['views'], fovy=PG_FOVY, device=dev)
+    sil, depth = pg_targets(model['vertices'], views, model['faces'], H)
+    v0, faces = pg_start(dev)
+    out = {}
+    for where in (dev, 'cpu'):
+        v = v0.detach().to(where).clone().requires_grad_()
+        cams = M.CameraViews(*(x.to(where) for x in views))
+        loss = pg_loss(v, cams, faces.to(where), sil.to(where),
+                       depth.to(where), H)
+        loss.backward()
+        out[str(where)] = (loss.item(), v.grad.cpu())
+    (l_d, g_d), (l_c, g_c) = out[str(dev)], out['cpu']
+    rel = abs(l_d - l_c) / abs(l_c)
+    scale = g_c.abs().max().item()
+    err = (g_d - g_c).abs().max().item()
+    print(f'path G step 0 ({H}^2, 1 view), card vs CPU: loss {l_d:.7f} vs '
+          f'{l_c:.7f} (rel {rel:.2e}, limit {STEP0_LOSS_RTOL:g}); vertex '
+          f'grad max|d| {err:.3e} of {scale:.3e} (limit {STEP0_GRAD_REL:g})')
+    _check(rel <= STEP0_LOSS_RTOL, 'path G: step-0 loss card vs CPU')
+    _check(scale > 0 and err <= STEP0_GRAD_REL * scale,
+           'path G: step-0 gradient card vs CPU')
+
+
+def pg_fit(views, faces, sil, depth, v0, tl):
+    """PG_STEPS Adam steps from the sphere; the mesh and a point cloud
+    logged every PG_LOG_EVERY."""
+    v = v0.clone().requires_grad_()
+    opt = torch.optim.Adam([v], lr=LR)
+    gen = torch.Generator(device=v.device).manual_seed(PG_SEED)
+    losses, logged = [], {}
+    for step in range(PG_STEPS):
+        if step % PG_LOG_EVERY == 0:
+            cur = v.detach()
+            pts = sample_points(cur[None], faces, PG_POINTS,
+                                generator=gen)[0][0]
+            tl.add_mesh_batch(iteration=step, category='fit',
+                              vertices_list=[cur], faces_list=[faces])
+            tl.add_pointcloud_batch(iteration=step, category='fit',
+                                    pointcloud_list=[pts])
+            logged[step] = (cur.cpu().numpy().copy(), pts.cpu().numpy())
+        opt.zero_grad()
+        loss = pg_loss(v, views, faces, sil, depth, HEIGHT)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    return v.detach(), losses, logged
+
+
+def pg_dash3d(logdir, logged, faces):
+    """StreamingGeometryHelper over the fit's Timelapse: the summary and
+    every message, decoded, bit-equal to what was logged."""
+    helper = StreamingGeometryHelper(logdir)
+    summary = helper.summary()
+    stamps = [float(s) for s in sorted(logged)]
+    listed = {k: [(b['category'], b['id'], b['timestamps']) for b in v]
+              for k, v in summary.items()}
+    _check(listed == {k: [('fit', 0, stamps)] for k in ('mesh',
+                                                        'pointcloud')},
+           'path G: dash3d summary lists the mesh and the point cloud')
+    nbytes, t0, ok = 0, time.perf_counter(), True
+    faces_np = faces.cpu().numpy()
+    for step, (verts, pts) in logged.items():
+        mesh_msg = helper.get_mesh_message('fit', 0, time=step)
+        pc_msg = helper.get_pointcloud_message('fit', 0, time=step)
+        nbytes += len(mesh_msg) + len(pc_msg)
+        typ_m, (mv, mf) = deserialize_arrays(mesh_msg)
+        typ_p, (pp,) = deserialize_arrays(pc_msg)
+        ok &= (typ_m == 1 and typ_p == 2
+               and mv.tobytes() == verts.astype(np.float32).tobytes()
+               and np.array_equal(mf, faces_np.astype(np.uint32))
+               and pp.tobytes() == pts.astype(np.float32).tobytes())
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f'path G dash3d: summary {listed}; {2 * len(logged)} messages, '
+          f'{nbytes} bytes in {ms:.1f} ms (host clock: USD read + encode); '
+          f'decoded bit-equal to the logged arrays: {ok}')
+    _check(ok, 'path G: dash3d messages bit-equal')
+    return nbytes, ms
+
+
+# the kernels' CUDA wrappers by LAUNCHES key: (module, attribute, plain)
+HELD = {'fwd': (FU, '_fused_forward_cuda', FU._fused_forward_torch),
+        'bwd': (FU, '_fused_backward_cuda', FU._fused_backward_torch),
+        'trace': (_trace, '_trace_cuda', _trace._trace_torch)}
+
+
+def _clone(x):
+    if isinstance(x, tuple):
+        return tuple(_clone(y) for y in x)
+    return x.clone() if torch.is_tensor(x) else x
+
+
+@contextlib.contextmanager
+def kept_launches():
+    """Within the block, keep the inputs and the outputs of every launch
+    of K1, K2 and K3, by LAUNCHES key, for :func:`hold_against_plain`.
+    The launches themselves, and their counts, are the caller's."""
+    kept = {k: [] for k in HELD}
+    launch = {k: getattr(mod, attr) for k, (mod, attr, _) in HELD.items()}
+
+    def keeping(key):
+        def run(*args, **kw):
+            inputs = (_clone(args), {k: _clone(v) for k, v in kw.items()})
+            out = launch[key](*args, **kw)
+            kept[key].append((*inputs, _clone(out)))
+            return out
+        return run
+
+    for key, (mod, attr, _) in HELD.items():
+        setattr(mod, attr, keeping(key))
+    try:
+        yield kept
+    finally:
+        for key, (mod, attr, _) in HELD.items():
+            setattr(mod, attr, launch[key])
+
+
+def hold_against_plain(kept, what):
+    """Each kept launch against its kernel's plain version on the same
+    inputs, with phases 2-3 and 7's limits: K1 face ids (share differing)
+    and prod, K2 the gradient relative to its largest, K3 every output
+    bitwise.  Returns ({key: launches held}, {key: max abs error})."""
+    err = dict(fwd=0., bwd=0., trace=0.)
+    for args, kw, (fid_k, prod_k) in kept['fwd']:
+        fid_p, prod_p = HELD['fwd'][2](*args, **kw)
+        mismatch = (fid_k != fid_p).float().mean().item()
+        dprod = (prod_k - prod_p).abs().max().item()
+        _check(mismatch <= K1_FID_MISMATCH_MAX and dprod <= K1_PROD_MAX,
+               f'{what}: K1 against plain (face ids {mismatch:.3e}, '
+               f'prod {dprod:.3e})')
+        err['fwd'] = max(err['fwd'], dprod)
+    for args, kw, out_k in kept['bwd']:
+        out_p = HELD['bwd'][2](*args, **kw)
+        d = (out_k - out_p).abs().max().item()
+        _check(d <= K2_REL_MAX * out_p.abs().max().item(),
+               f'{what}: K2 against plain (max|d| {d:.3e})')
+        err['bwd'] = max(err['bwd'], d)
+    for args, kw, out_k in kept['trace']:
+        out_p = HELD['trace'][2](*args, **kw)
+        _check(_same_outputs(out_k, out_p), f'{what}: K3 against plain')
+        err['trace'] = max(err['trace'], _max_t_err(out_k, out_p))
+    return {k: len(v) for k, v in kept.items()}, err
+
+
+def pg_frame_render(vertices, faces, size):
+    """``render(camera)`` for the visualizers: the mesh through K1
+    (``rasterize(backend='fused')``), shaded by |normal . view z|."""
+    def render(camera):
+        vc = camera.extrinsics.transform(vertices[None])
+        vn = camera.intrinsics.transform(vc)
+        fvc = index_vertices_by_faces(vc, faces)
+        fvi = index_vertices_by_faces(vn[..., :2], faces)
+        fn = face_normals(fvc, unit=True)[:, :, None].expand(-1, -1, 3, -1)
+        img, fid = rasterize(size, size, fvc[..., -1], fvi, fn,
+                             backend='fused')
+        return torch.where((fid >= 0)[..., None], img[..., 2:].abs()
+                           .expand(-1, -1, -1, 3), 0.)
+    return render
+
+
+def pg_viewers(vertices, faces, dev):
+    """Turntable: PG_EVENTS rotate / zoom events, a frame after each;
+    first person: move and look, a frame after each.  Frames differ
+    between poses; K1 ran once per frame; the first frame's K1 launch is
+    held against plain.  Returns K1's max |dprod| there."""
+    def cam():
+        return Camera.from_args(**{k: torch.tensor(v, dtype=torch.float32,
+                                                   device=dev)
+                                   if k != 'fov' else v
+                                   for k, v in PG_VIEWER.items()},
+                                width=WIDTH, height=HEIGHT)
+    render = pg_frame_render(vertices, faces, HEIGHT)
+    turn = IpyTurntableVisualizer(HEIGHT, WIDTH, cam(), render, max_fps=None)
+    first = IpyFirstPersonVisualizer(HEIGHT, WIDTH, cam(), render,
+                                     max_fps=None)
+    # drags of a few percent of the canvas: a few degrees each
+    events = [lambda i=i: (turn.rotate(0.08 * WIDTH * (i + 1), 0.02 * HEIGHT
+                                       * i) if i % 2 == 0
+                           else turn.zoom(2000.)) for i in range(PG_EVENTS)]
+    events += [lambda: first.move_forward(0.2), lambda: first.move_right(),
+               lambda: first.move_up(),
+               lambda: first.look(0.05 * WIDTH, 0.03 * HEIGHT)]
+    before = FU.LAUNCHES['fwd']
+    frames, t_ms = [], []
+    torch.cuda.synchronize()
+    for i, event in enumerate(events):
+        event()
+        viz = turn if i < PG_EVENTS else first
+        with kept_launches() if i == 0 else contextlib.nullcontext() as kept:
+            t0 = time.perf_counter()
+            frames.append(viz._draw(viz.render))
+            t_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:      # the first frame's K1 launch against plain
+            held, err = hold_against_plain(kept, 'path G viewer frame')
+    k1 = FU.LAUNCHES['fwd'] - before
+    differ = all(not np.array_equal(a, b) for a, b in zip(frames, frames[1:]))
+    shapes = {f.shape for f in frames}
+    print(f'path G viewers: {len(frames)} frames at {HEIGHT}^2 ({PG_EVENTS} '
+          f'turntable rotate / zoom events, 4 first-person moves), uint8 '
+          f'{shapes}, consecutive frames differ: {differ}; K1 launches '
+          f'{k1}; the first frame\'s K1 launch against plain: face ids '
+          f'equal within {K1_FID_MISMATCH_MAX:g}, max|dprod| '
+          f'{err["fwd"]:.3e}; frame ms (host clock, K1 + copy to the host, '
+          f'the first under the recorder) first {t_ms[0]:.1f}, then mean '
+          f'{np.mean(t_ms[1:]):.1f}')
+    _check(held['fwd'] == 1, 'path G: one viewer frame held against plain')
+    _check(shapes == {(HEIGHT, WIDTH, 3)}, 'path G: frame shape')
+    _check(differ, 'path G: frames differ between poses')
+    _check(k1 == len(frames), 'path G: K1 once per frame')
+    _check(all((f > 0).any() for f in frames), 'path G: the mesh in view')
+    return err['fwd']
+
+
+def pg_examples(dev, tmp):
+    """The five examples' main() in-process on the card; K1, K2 and K3
+    launches counted around them, each launch held against its kernel's
+    plain version on the inputs the example gave it.  Returns (launches,
+    max abs errors)."""
+    for k in FU.LAUNCHES:
+        FU.LAUNCHES[k] = 0
+    _trace.LAUNCHES['trace'] = 0
+    err = dict(fwd=0., bwd=0., trace=0.)
+    n_held = dict(fwd=0, bwd=0, trace=0)
+    for name, argv, last in PG_EXAMPLES:
+        mod = importlib.import_module(f'kaolin_tpu_torch.examples.{name}')
+        extra = (['--logdir', os.path.join(tmp, 'example_timelapse')]
+                 if name == 'dibr_inverse_rendering' else [])
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), kept_launches() as kept:
+            result = mod.main(argv + extra + ['--device', str(dev)])
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        held, e = hold_against_plain(kept, f'path G example {name}')
+        err = {k: max(err[k], e[k]) for k in err}
+        n_held = {k: n_held[k] + held[k] for k in n_held}
+        text = out.getvalue()
+        _check(last in text and result.device.type == torch.device(dev).type
+               and bool(torch.isfinite(result.float()).all()),
+               f'path G: example {name}')
+        print(f'path G example {name} {" ".join(argv)}: last line '
+              f'{text.strip().splitlines()[-1]!r}; launches held against '
+              f'plain on their own inputs {held}, max abs err '
+              f'{ {k: float(f"{v:.3e}") for k, v in e.items()} }; '
+              f'{secs:.2f} s wall (host clock, test sizes: start-up and '
+              f'first calls, with the recorder; not a rate)')
+    launches = dict(fwd=FU.LAUNCHES['fwd'], bwd=FU.LAUNCHES['bwd'],
+                    trace=_trace.LAUNCHES['trace'])
+    print(f'path G examples: kernel launches {launches}, every one held '
+          f'against plain; max abs err {err}')
+    _check(launches['fwd'] > 0 and launches['bwd'] > 0
+           and launches['trace'] > 0,
+           'path G: the examples launch K1, K2 and K3')
+    _check(n_held == launches, 'path G: every example launch held')
+    return launches, err
+
+
+def path_g(dev, card):
+    """Phase 23: path G, a ShapeNetV2-layout corpus through CachedDataset
+    and a DataLoader, fitted from its own synthetic views through K1 and
+    K2, shown in dash3d and the visualizers; then the examples."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        shapenet, modelnet, shrec = pg_corpus(tmp)
+        for k in FU.LAUNCHES:
+            FU.LAUNCHES[k] = 0
+        models = pg_load(tmp, shapenet, modelnet, shrec, dev)
+        (views, sil, depth), t_views = pg_views(models, dev, tmp)
+        target = models[0]
+        pg_step0(target, dev)
+        v0, faces = pg_start(dev)
+        _check(torch.equal(faces, target['faces']),
+               'path G: the fit shares the models\' faces')
+        # K1 and K2 against their plain versions on the first step's
+        # inputs, one view (not counted as path launches)
+        scene = dict(height=HEIGHT, views=views, faces=faces,
+                     params=M.InverseRenderParams(v0, None, None))
+        vt, tr, ctr, cbb = kernel_inputs(scene)
+        one = tuple(x[:1].contiguous() for x in (vt, tr, ctr, cbb))
+        saved = dict(FU.LAUNCHES)
+        fid, prod, k1_err = check_forward(scene, one)
+        _, k2_err = check_backward(scene, one, fid, prod)
+        FU.LAUNCHES.update(saved)
+        del vt, tr, ctr, cbb, one, fid, prod
+        logdir = os.path.join(tmp, 'timelapse')
+        tl = Timelapse(logdir)
+        result = {}
+
+        def fit():
+            result['fit'] = pg_fit(views, faces, sil, depth, v0, tl)
+
+        fit_launches = dict(FU.LAUNCHES)
+        t0 = time.perf_counter()
+        idle = step_profile(fit, card, steps=1)
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        fitted, losses, logged = result['fit']
+        fit_launches = {k: FU.LAUNCHES[k] - fit_launches[k]
+                        for k in FU.LAUNCHES}
+        print(f'path G fit: {PG_STEPS} Adam steps (fused, {VIEWS} views, '
+              f'{HEIGHT}^2) of the radius-{PG_FIT_RADIUS} sphere to model '
+              f'0\'s imported silhouettes and depths: loss {losses[0]:.6f} '
+              f'-> {losses[-1]:.6f}; K1/K2 launches {fit_launches}; '
+              f'{fit_ms:.1f} ms with the Timelapse, under the profiler '
+              f'(host clock), card idle share {idle:.3f}')
+        _check(losses[-1] < losses[0], 'path G: the loss falls')
+        _check(fit_launches['fwd'] >= PG_STEPS
+               and fit_launches['bwd'] >= PG_STEPS,
+               'path G: K1 and K2 on every step')
+        step_ms = time_ms(lambda: pg_loss(
+            fitted.clone().requires_grad_(), views, faces, sil, depth,
+            HEIGHT).backward(), 3)
+        nbytes, dash_ms = pg_dash3d(logdir, logged, faces)
+        viewer_err = pg_viewers(fitted, faces, dev)
+        launches = dict(FU.LAUNCHES)
+        ex_launches, ex_err = pg_examples(dev, tmp)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[{card}] path G: fit step {step_ms:.3f} ms (CUDA events, '
+          f'forward + backward, {VIEWS} views, {HEIGHT}^2); dash3d '
+          f'{nbytes} bytes in {dash_ms:.1f} ms; K1/K2 launches on path G '
+          f'{launches}, in the examples {ex_launches}; peak device memory '
+          f'{peak:.3f} GiB')
+    return dict(launches=launches, examples=ex_launches,
+                k1_err=max(k1_err, viewer_err, ex_err['fwd']),
+                k2_err=max(k2_err, ex_err['bwd']), k3_err=ex_err['trace'],
+                step_ms=step_ms, idle=idle, peak=peak)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is '
@@ -3057,6 +3650,10 @@ def main():
     path_f_out = path_f(dev, card)
     phase('22: path F (DIB-R fit with Timelapse and checkpoint, MISE '
           'through the triangle hash)')
+    torch.cuda.empty_cache()
+    path_g_out = path_g(dev, card)
+    phase('23: path G (datasets -> synthetic views -> DIB-R fit -> dash3d '
+          'and the visualizers; the examples)')
 
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
     trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cu'
@@ -3064,30 +3661,42 @@ def main():
         dict(name='fused_forward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:232',
              launches=(launches['fwd'] + path_c_out['launches']
-                       + path_f_out['launches']['fwd']),
+                       + path_f_out['launches']['fwd']
+                       + path_g_out['launches']['fwd']
+                       + path_g_out['examples']['fwd']),
              path_launches={'dibr': launches['fwd'],
                             'path_c': path_c_out['launches'],
-                            'path_f': path_f_out['launches']['fwd']},
+                            'path_f': path_f_out['launches']['fwd'],
+                            'path_g': path_g_out['launches']['fwd'],
+                            'examples': path_g_out['examples']['fwd']},
              max_abs_err=max(k1_err, path_c_out['k1_err'],
-                             path_f_out['k1_err']),
+                             path_f_out['k1_err'], path_g_out['k1_err']),
              ms=t['k1_ms'], plain_ms=t['k1_plain_ms'],
              **_bound(k1_b, k1_f), library_ms=None,
              path_c_ms=path_c_out['k1_ms'],
              path_c_plain_ms=path_c_out['k1_plain_ms']),
         dict(name='fused_backward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:386',
-             launches=launches['bwd'] + path_f_out['launches']['bwd'],
+             launches=(launches['bwd'] + path_f_out['launches']['bwd']
+                       + path_g_out['launches']['bwd']
+                       + path_g_out['examples']['bwd']),
              path_launches={'dibr': launches['bwd'],
-                            'path_f': path_f_out['launches']['bwd']},
-             max_abs_err=max(k2_err, path_f_out['k2_err']),
+                            'path_f': path_f_out['launches']['bwd'],
+                            'path_g': path_g_out['launches']['bwd'],
+                            'examples': path_g_out['examples']['bwd']},
+             max_abs_err=max(k2_err, path_f_out['k2_err'],
+                             path_g_out['k2_err']),
              ms=t['k2_ms'], plain_ms=t['k2_plain_ms'],
              **_bound(k2_b, k2_f), library_ms=None),
         dict(name='spc_trace_kernel', route='cuda', source=trace_src,
              replaces='kaolin_tpu/render/spc/raster.py:459',
-             launches=spc_launches + path_a_out['launches'],
+             launches=(spc_launches + path_a_out['launches']
+                       + path_g_out['examples']['trace']),
              path_launches={'spc_main': spc_launches,
-                            'path_a': path_a_out['launches']},
-             max_abs_err=max(k3_err, path_a_out['k3_err']),
+                            'path_a': path_a_out['launches'],
+                            'examples': path_g_out['examples']['trace']},
+             max_abs_err=max(k3_err, path_a_out['k3_err'],
+                             path_g_out['k3_err']),
              ms=ts['k3_ms'], plain_ms=ts['k3_plain_ms'],
              **_bound(k3_b, k3_f), library_ms=None,
              pinhole_ms=path_a_out['k3_ms'],

@@ -30,7 +30,13 @@ marching cubes; slice 9, the native host layer
 tokenizer, C++ built with ``g++`` at first use), USD I/O
 (:mod:`kaolin_tpu_torch.io.usd`), OFF, ``sdf_to_voxelgrids``,
 :class:`~kaolin_tpu_torch.visualize.Timelapse` and training-state
-checkpoints (:mod:`kaolin_tpu_torch.utils.checkpoint`).
+checkpoints (:mod:`kaolin_tpu_torch.utils.checkpoint`); slice 10, the
+datasets (:mod:`kaolin_tpu_torch.io.dataset`, ShapeNet, ModelNet,
+SHREC16), synthetic-view import (:mod:`kaolin_tpu_torch.io.render`), the
+tensor checkers of :mod:`kaolin_tpu_torch.utils.testing`, the Jupyter
+visualizers (:mod:`kaolin_tpu_torch.visualize.ipython`), the dash3d viewer
+(:mod:`kaolin_tpu_torch.experimental.dash3d`) and the examples
+(:mod:`kaolin_tpu_torch.examples`).
 """
 
 __version__ = "0.1.0"
@@ -41,3 +47,4 @@ from kaolin_tpu_torch import ops  # noqa: F401
 from kaolin_tpu_torch import render  # noqa: F401
 from kaolin_tpu_torch import rep  # noqa: F401
 from kaolin_tpu_torch import utils  # noqa: F401
+from kaolin_tpu_torch import visualize  # noqa: F401

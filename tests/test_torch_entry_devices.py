@@ -52,6 +52,10 @@ from kaolin_tpu_torch.io import obj as obj_io
 from kaolin_tpu_torch.ops.conversions import sdf_to_voxelgrids
 from kaolin_tpu_torch.ops.mesh.check_sign import check_sign
 from kaolin_tpu_torch.utils import checkpoint, profiler
+from kaolin_tpu_torch.io import dataset, modelnet, shapenet, shrec
+from kaolin_tpu_torch.io.render import import_synthetic_view
+from kaolin_tpu_torch.utils.testing import (write_modelnet, write_shapenet_v2,
+                                            write_shrec16, write_synthetic_view)
 
 LEVEL = 3
 
@@ -139,6 +143,38 @@ def _trinkets(device=None):
 def _query(device=None):
     octree, ph, _, exsum, _, _, _ = _spc_numpy()
     return unbatched_query(octree, exsum, ph[-5:], LEVEL, device=device)
+
+
+def _tree(write, cls, device, **kw):
+    """A one-model tree written by ``write``, loaded by ``cls``: the
+    first item's vertices."""
+    with tempfile.TemporaryDirectory() as tmp:
+        write(tmp, ['02691156'], 1, (8, 5))
+        return cls(tmp, device=device, **kw)[0]['mesh'].vertices
+
+
+def _cached(device=None):
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = dataset.CachedDataset([{'a': np.ones(3, np.float32)}], tmp,
+                                      save_on_disk=True, device=device)
+        return cache[0]['a']
+
+
+def _synthetic_view(device=None):
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_view(tmp, 0, np.eye(3), np.zeros(3), 0.8, (4, 4),
+                             semantic=np.ones((4, 4), np.int32))
+        return import_synthetic_view(tmp, 0, rgb=False, semantic=True,
+                                     device=device)['semantic']
+
+
+def _example(name, argv):
+    def run(device=None):
+        from importlib import import_module
+        mod = import_module(f'kaolin_tpu_torch.examples.{name}')
+        extra = [] if device is None else ['--device', str(device)]
+        return mod.main(argv + extra)
+    return run
 
 
 _LOOKAT = dict(eye=np.array([0., 1., 3.]), at=np.zeros(3),
@@ -279,6 +315,28 @@ ENTRY = {
         _Mesh.vertices[None], uv_sphere(8, 5).faces,
         np.zeros((1, 4, 3), np.float32), use_hash=True, device=device),
     'load_npz': _npz,
+    # slice 10
+    'import_synthetic_view': _synthetic_view,
+    'ShapeNetV2': lambda device=None: _tree(write_shapenet_v2,
+                                            shapenet.ShapeNetV2, device,
+                                            split=1.),
+    'ModelNet': lambda device=None: _tree(
+        lambda root, cats, n, sphere: write_modelnet(root, ['chair'], n,
+                                                     sphere),
+        modelnet.ModelNet, device),
+    'SHREC16': lambda device=None: _tree(write_shrec16, shrec.SHREC16,
+                                         device),
+    'CachedDataset': _cached,
+    'examples.camera_tour': _example('camera_tour', []),
+    'examples.dibr_inverse_rendering': _example(
+        'dibr_inverse_rendering', ['--height', '16', '--width', '16',
+                                   '--num-views', '1', '--steps', '1']),
+    'examples.dmtet_demo': _example('dmtet_demo', ['--res', '3', '--steps',
+                                                   '1']),
+    'examples.spc_raytrace_demo': _example('spc_raytrace_demo',
+                                           ['--level', '3', '--rays', '64']),
+    'examples.sg_lighting_demo': _example('sg_lighting_demo',
+                                          ['--size', '16', '--steps', '1']),
 }
 
 

@@ -235,6 +235,15 @@ def test_port_imports_no_jax():
             'from kaolin_tpu_torch.ops.conversions import sdf; '
             'from kaolin_tpu_torch.visualize import timelapse; '
             'from kaolin_tpu_torch.utils import checkpoint, profiler; '
+            'from kaolin_tpu_torch.io import dataset, modelnet, render, '
+            'shapenet, shrec; '
+            'from kaolin_tpu_torch.visualize import ipython; '
+            'from kaolin_tpu_torch import experimental; '
+            'from kaolin_tpu_torch.experimental import dash3d; '
+            'from kaolin_tpu_torch.experimental.dash3d import run, util; '
+            'from kaolin_tpu_torch.examples import camera_tour, '
+            'dibr_inverse_rendering, dmtet_demo, sg_lighting_demo, '
+            'spc_raytrace_demo; '
             'bad = [m for m in sys.modules '
             "if m == 'jax' or m.startswith(('jax.', 'kaolin_tpu.'))]; "
             'print(bad); sys.exit(1 if bad else 0)')
