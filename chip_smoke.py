@@ -326,6 +326,9 @@ K2_REL_MAX = 1e-3           # max |grad diff| / max |grad|
 # index/grid_sample backward's atomic sums
 STEP0_LOSS_RTOL = 1e-4
 STEP0_GRAD_REL = 1e-3
+# a step's parts, timed by contiguous CUDA events inside it, against the
+# step: only the float rounding of elapsed_time lies between them
+PARTS_RTOL, PARTS_ATOL_MS = 0.01, 0.01
 
 KNUM = 30                   # soft-mask k-buffer depth ('jnp' backend)
 # step 0 against the plain path on the CPU runs at this reduced size (the
@@ -487,13 +490,19 @@ def toolchain(card):
         found = importlib.util.find_spec(name) is not None
         print(f'{name} {"is" if found else "is not"} installed')
     names = sorted(p.stem for p in _cuda.CSRC.glob('*.cu'))
+    modules = sorted(p.stem[:-len('_module')]
+                     for p in _cuda.CSRC.glob('*_module.cpp'))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
-        list(pool.map(_cuda.load, names))
+    with ThreadPoolExecutor(len(names) + len(modules)) as pool:
+        builds = ([pool.submit(_cuda.load, n) for n in names]    # one nvcc
+                  + [pool.submit(_cuda.load_module, m) for m in modules])
+        for b in builds:
+            b.result()
     print(f'kernel builds + loads, in parallel '
-          f'({", ".join(n + ".cu" for n in names)}): '
+          f'({", ".join(n + ".cu" for n in names)}; extension modules '
+          f'{", ".join(f"{m}.cu + {m}_module.cpp" for m in modules)}): '
           f'{time.perf_counter() - t0:.2f} s')
-    for name in names:
+    for name in names:          # a module's kernels are its .cu's
         for line in _cuda.BUILD_LOG.get(name, '').splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 print(f'  ptxas: {line.strip()}')
@@ -1225,22 +1234,54 @@ def _probe_counts():
         _trace.LAUNCHES[f'stage{st}'] for st in _trace.STAGES)
 
 
+def _p1_line(t):
+    """A P1 kernel's two times beside its library call's and its bound."""
+    lib = ('none' if t['library_ms'] is None else
+           f'{t["library_ms"]:.4f} / {t["library_device_ms"]:.4f}')
+    return (f'{t["ms"]:.4f} ms per call / {t["device_ms"]:.4f} ms on the '
+            f'device; library {lib}; plain {t["plain_ms"]:.4f}; bound '
+            f'{t["bound_ms"]:.4f} ({t["bound_by"]})')
+
+
 def probe_p1(spc, card):
-    """Phase 11: P1 through ``probes.mosaic3.run``."""
+    """Phase 11: P1 through ``probes.mosaic3.run``: every kernel against
+    its plain version (the script's ones, random x, K3's staging shape,
+    kA's large shape), captured against eager launches; times per call and
+    on the device beside the library call's, at each shape."""
     rows = spc['table'].rows.shape[0]
     t0 = time.perf_counter()
     res, counts = _probe_path(mosaic3.run, spc['o'].device, table_rows=rows)
-    print(f'P1 kA..kH vs plain (script inputs, random x, and kB/kC/kD at '
-          f'K3\'s staging shape {mosaic3.STAGING} with {rows} table rows): '
-          f'bitwise equal, max|d| {max(res["max_abs_err"].values()):.1e}; '
-          f'launches {counts}; {time.perf_counter() - t0:.1f} s')
-    for where in ('script', 'staging'):
+    print(f'P1 kA..kH vs plain (script inputs, random x, kB/kC/kD at '
+          f'K3\'s staging shape {mosaic3.STAGING} with {rows} table rows, kA '
+          f'at {mosaic3.LARGE_NB} x {mosaic3.R} x {mosaic3.C}): bitwise '
+          f'equal, max|d| {max(res["max_abs_err"].values()):.1e}; every '
+          f'kernel\'s launch captured in a CUDA graph equals its eager '
+          f'launch; launches {counts}; {time.perf_counter() - t0:.1f} s')
+    print(f'[{card}] P1 times: per call (time_ms: events around '
+          f'{mosaic3.ITERS} back-to-back Python calls) / on the device '
+          f'(device_ms: one CUDA graph of the same calls, host cost out); '
+          f'library call the same two ways, in turns with the kernel')
+    for where in ('script', 'staging', 'large'):
         for name, t in res[where].items():
-            lib = ('-' if t['library_ms'] is None
-                   else f'{t["library_ms"]:.4f}')
-            print(f'[{card}] P1 {name} ({where}): {t["ms"]:.4f} ms, plain '
-                  f'{t["plain_ms"]:.4f}, library {lib}, bound '
-                  f'{t["bound_ms"]:.4f} ({t["bound_by"]})')
+            print(f'[{card}] P1 {name} ({where}): {_p1_line(t)}')
+    host = ', '.join(f'{k} {v:.3f}' for k, v in res['host_us'].items())
+    print(f'[{card}] P1 host us per call (perf_counter, '
+          f'{mosaic3.HOST_CALLS} calls, script shape): {host}')
+    sa, sd = res['script']['kA'], res['script']['kD']
+    la, gd = res['large']['kA'], res['staging']['kD']
+    print(f'[{card}] P1 targets: kA per call {sa["ms"]:.4f} <= torch.mul '
+          f'{sa["library_ms"]:.4f}: {sa["ms"] <= sa["library_ms"]}; kA on '
+          f'the device {sa["device_ms"]:.4f} <= {sa["library_device_ms"]:.4f}'
+          f': {sa["device_ms"] <= sa["library_device_ms"]}; kD per call '
+          f'{sd["ms"]:.4f} <= F.embedding_bag {sd["library_ms"]:.4f}: '
+          f'{sd["ms"] <= sd["library_ms"]}; kD on the device '
+          f'{sd["device_ms"]:.4f} <= {sd["library_device_ms"]:.4f}: '
+          f'{sd["device_ms"] <= sd["library_device_ms"]}; kD at the staging '
+          f'shape {gd["ms"]:.4f} <= 0.11 and < {gd["library_ms"]:.4f}: '
+          f'{gd["ms"] <= 0.11 and gd["ms"] < gd["library_ms"]}; kA at the '
+          f'large shape {la["device_ms"]:.4f} ms = '
+          f'{la["bound_ms"] / la["device_ms"]:.1%} of its bound (>= 50 %: '
+          f'{la["bound_ms"] / la["device_ms"] >= 0.5})')
     sb, sc = res['staging']['kB'], res['staging']['kC']
     print(f'[{card}] P1 at K3\'s staging shape: double-buffered kB '
           f'{sb["ms"]:.4f} ms vs single-slot kC {sc["ms"]:.4f} ms '
@@ -1298,6 +1339,48 @@ def probe_p3(args, dense_args, card):
     _check(all(counts[f'stage{st}'] >= 1 for st in _trace.STAGES),
            'every P3 stage launched on its path')
     return res, counts
+
+
+# ---------------------------------------------------------------------------
+# The parts of a step, timed inside the step
+
+def step_parts_ms(step, runs=3):
+    """(parts, steps): ``parts`` (runs, k) ms of ``step(mark)`` after a
+    warm-up step, from a CUDA event before the step and one at each of its
+    k ``mark()`` calls, all on the current stream inside the same step;
+    ``steps`` (runs,) ms from the first event to the last.  The parts are
+    contiguous, so they add up to the step: no part is derived by
+    subtracting a time taken apart."""
+    step(lambda: None)
+    parts, steps = [], []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True)]
+        torch.cuda.synchronize()
+        ev[0].record()
+
+        def mark():
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+
+        step(mark)
+        torch.cuda.synchronize()
+        parts.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+        steps.append(ev[0].elapsed_time(ev[-1]))
+    return np.asarray(parts), np.asarray(steps)
+
+
+def check_parts(what, names, parts, steps):
+    """The parts of each timed step add up to it (within 1 % + 0.01 ms) and
+    none is negative; returns the line of their means."""
+    _check(parts.shape[1] == len(names) and bool((parts >= 0).all()),
+           f'{what}: one non-negative time per part')
+    _check(bool((np.abs(parts.sum(1) - steps)
+                 <= PARTS_RTOL * steps + PARTS_ATOL_MS).all()),
+           f'{what}: the parts add up to the step')
+    return (', '.join(f'{n} {m:.3f}' for n, m in zip(names, parts.mean(0)))
+            + f' ms, sum {parts.sum(1).mean():.3f} = step '
+            f'{steps.mean():.3f} ms (CUDA events inside the same '
+            f'{len(steps)} steps)')
 
 
 # ---------------------------------------------------------------------------
@@ -1399,23 +1482,23 @@ def config1(dev, card):
     g = torch.as_tensor(np.random.default_rng(2).standard_normal(
         tuple(face_idx.shape)).astype(np.float32), device=dev)
 
-    def epilogue(backward):
-        f = fvi.detach().requires_grad_(backward)
+    def epilogue(mark):
+        f = fvi.detach().requires_grad_()
         m = dibr_soft_mask(f, face_idx, knum=CFG1['knum'], kbuf=kb)
-        if backward:
-            m.backward(g)
+        mark()
+        m.backward(g)
+        mark()
 
-    fwd_ms = time_ms(lambda: epilogue(False), 5)
-    fwdbwd_ms = time_ms(lambda: epilogue(True), 5)
+    split = check_parts('config #1 soft-mask epilogue',
+                        ('forward', 'backward'),
+                        *step_parts_ms(epilogue, 5))
     print(f'[{card}] config #1 step (\'jnp\': selection + render_loss + '
           f'backward, {B} views, {H}x{H}, {scene["faces"].shape[0]} faces, '
           f'knum {CFG1["knum"]}): {step_ms:.3f} ms = '
           f'{B * H * H / step_ms / 1e3:.3f} Mpix/s')
     print(f'[{card}] config #1 z-buffer selection (_selection_jnp) '
           f'{zsel_ms:.3f} ms; k-buffer selection (dibr_soft_mask_select) '
-          f'{ksel_ms:.3f} ms; soft-mask epilogue forward {fwd_ms:.3f} ms, '
-          f'forward + backward {fwdbwd_ms:.3f} ms, so backward '
-          f'{fwdbwd_ms - fwd_ms:.3f} ms')
+          f'{ksel_ms:.3f} ms; soft-mask epilogue: {split}')
     step_profile(lambda: _step(scene, scene['params']), card)
     return dict(step_ms=step_ms, cpu_s=cpu_s)
 
@@ -1694,12 +1777,16 @@ def feature_image(scene, camera, feats, trace=NG_TRACE):
     return integrate(samples, nuggets[0], o.shape[0]), hits
 
 
-def nglod_step(scene, camera, feats, target, trace=NG_TRACE):
-    """Render, L1 against ``target``, backward to ``feats``."""
+def nglod_step(scene, camera, feats, target, trace=NG_TRACE,
+               mark=lambda: None):
+    """Render, L1 against ``target``, backward to ``feats``; ``mark()``
+    after the forward and after the backward."""
     image, hits = feature_image(scene, camera, feats, trace)
     loss = (image - target).abs().mean()
+    mark()
     feats.grad = None
     loss.backward()
+    mark()
     return loss, hits
 
 
@@ -1839,7 +1926,14 @@ def path_a(fv, dev, card):
     nug_ms = time_ms(lambda: hits_to_nuggets(hits), 3)
     interp_ms = time_ms(lambda: interpolate(scene, o, d, nuggets, feats), 3)
     integ_ms = time_ms(lambda: integrate(samples, nuggets[0], N), 3)
-    fwd_ms = time_ms(lambda: feature_image(scene, camera, feats), 3)
+
+    def adam_step(mark):
+        nglod_step(scene, camera, feats, target, mark=mark)
+        opt.step()
+        mark()
+
+    split = check_parts('path A step', ('forward', 'backward', 'Adam'),
+                        *step_parts_ms(adam_step))
     launch = {k: v for k, v in args.items() if k != 'num_blocks'}
     k3 = {}
     for with_exit in (False, True):
@@ -1855,8 +1949,8 @@ def path_a(fv, dev, card):
     print(f'[{card}] path A step (camera rays -> trace -> nuggets -> '
           f'trilinear -> integration -> L1 -> backward, {N} rays, '
           f'{nuggets[0].shape[0]} samples): {step_ms:.3f} ms = '
-          f'{N / step_ms / 1e3:.3f} Mrays/s; forward {fwd_ms:.3f} ms, so '
-          f'backward {step_ms - fwd_ms:.3f} ms; trace (rays + culling + K3 '
+          f'{N / step_ms / 1e3:.3f} Mrays/s; with the Adam update, by '
+          f'part: {split}; on their own: trace (rays + culling + K3 '
           f'+ outputs) {trace_ms:.3f} ms, hits_to_nuggets {nug_ms:.3f}, '
           f'interpolation {interp_ms:.3f}, integration + image '
           f'{integ_ms:.3f} ms; peak device memory of a step {peak:.3f} GiB')
@@ -1902,13 +1996,16 @@ def conv_forward(spc, layers, x, level):
     return x, ins, level
 
 
-def conv_step(spc, layers, x, level):
-    """Forward, L2 loss, backward to the input and the weights."""
+def conv_step(spc, layers, x, level, mark=lambda: None):
+    """Forward, L2 loss, backward to the input and the weights; ``mark()``
+    after the forward and after the backward."""
     for p in [x] + [p for m in layers for p in m.parameters()]:
         p.grad = None
     out, _, _ = conv_forward(spc, layers, x, level)
     loss = out.square().mean()
+    mark()
     loss.backward()
+    mark()
     return out, loss
 
 
@@ -1997,8 +2094,10 @@ def path_b(fv, dev, card):
     conv_card_vs_cpu(fv, dev)
     dense_card_vs_cpu(spc, fv, dev)
 
-    fwd_ms = time_ms(lambda: conv_forward(spc, layers, x, SPC_LEVEL), 3)
     step_ms = time_ms(lambda: conv_step(spc, layers, x, SPC_LEVEL), 3)
+    split = check_parts('path B step', ('forward', 'backward'),
+                        *step_parts_ms(lambda mark: conv_step(
+                            spc, layers, x, SPC_LEVEL, mark)))
     _, ins, _ = conv_forward(spc, layers, x, SPC_LEVEL)
     pyr = spc.pyramids[0]
     parts = []
@@ -2022,9 +2121,8 @@ def path_b(fv, dev, card):
             n_pairs=pairs[0].shape[0], K=kv.shape[0], n_out=pts.shape[0]))
     print(f'[{card}] path B (Conv3d 16->32 3^3 -> Conv3d 32->64 2^3 jump 1 '
           f'-> ConvTranspose3d 64->32 2^3 jump 1 over {n} level-{SPC_LEVEL} '
-          f'points, L2): forward {fwd_ms:.3f} ms, forward + backward '
-          f'{step_ms:.3f} ms, so backward {step_ms - fwd_ms:.3f} ms; peak '
-          f'device memory of a step {peak:.3f} GiB')
+          f'points, L2): forward + backward {step_ms:.3f} ms; by part: '
+          f'{split}; peak device memory of a step {peak:.3f} GiB')
     for layer, p in zip(('conv 3^3', 'conv 2^3 down', 'transpose 2^3 up'),
                         parts):
         print(f'[{card}]   {layer}: {p["n_pairs"]} live (tap, output) pairs '
@@ -2033,7 +2131,7 @@ def path_b(fv, dev, card):
               f'{p["gather"]:.3f} ms, gather + per-tap matmul + index_add '
               f'{p["products"]:.3f} ms')
     idle = step_profile(lambda: conv_step(spc, layers, x, SPC_LEVEL), card)
-    return dict(step_ms=step_ms, fwd_ms=fwd_ms, peak=peak, idle=idle)
+    return dict(step_ms=step_ms, peak=peak, idle=idle)
 
 
 # ---------------------------------------------------------------------------
@@ -2174,12 +2272,15 @@ def sg_shade(px, amp, az, el, sharp):
                                     px['roughness'], px['view'], px['spec']))
 
 
-def sg_step(px, params, target):
-    """shade -> masked MSE -> backward; returns the loss."""
+def sg_step(px, params, target, mark=lambda: None):
+    """shade -> masked MSE -> backward; returns the loss; ``mark()`` after
+    the forward and after the backward."""
     for p in params:
         p.grad = None
     loss = torch.mean((sg_shade(px, *params) - target) ** 2)
+    mark()
     loss.backward()
+    mark()
     return loss
 
 
@@ -2276,18 +2377,24 @@ def path_c(dev, card):
         a, d, s_, px['normal'], px['albedo']), 3)
     spec_ms = time_ms(lambda: sg_warp_specular_term(
         a, d, s_, px['normal'], px['roughness'], px['view'], px['spec']), 3)
-    with torch.no_grad():
-        fwd_ms = time_ms(lambda: torch.mean(
-            (sg_shade(px, *params) - target) ** 2), 3)
+
+    def adam_step(mark):
+        sg_step(px, params, target, mark)
+        opt.step()
+        mark()
+
+    split = check_parts('path C step', ('forward', 'backward', 'Adam'),
+                        *step_parts_ms(adam_step))
     torch.cuda.reset_peak_memory_stats()
     sg_step(px, params, target)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'[{card}] path C step (shade {n} pixels x {SG_LOBES} lobes -> '
-          f'MSE -> backward): {step_ms:.3f} ms; forward {fwd_ms:.3f} ms '
-          f'(diffuse {diff_ms:.3f}, specular {spec_ms:.3f}), so backward '
-          f'{step_ms - fwd_ms:.3f} ms; the geometry, once per run ({VIEWS} '
-          f'rasterizations through K1 + pixel gathers) {geo_ms:.3f} ms; '
+          f'MSE -> backward): {step_ms:.3f} ms; with the Adam update, by '
+          f'part: {split}; on their own: diffuse {diff_ms:.3f}, specular '
+          f'{spec_ms:.3f} ms (forwards, no grad); the geometry, once per run '
+          f'({VIEWS} rasterizations through K1 + pixel gathers) '
+          f'{geo_ms:.3f} ms; '
           f'peak device memory of a step {peak:.3f} GiB')
     idle = step_profile(lambda: sg_step(px, params, target), card)
     return dict(launches=launches, step_ms=step_ms, idle=idle, peak=peak,
@@ -2342,26 +2449,6 @@ def dmtet_step(scene, sdf, gen, mark=lambda: None):
 
 DMTET_STAGES = ('marching_tetrahedra', 'sample_points', 'chamfer_distance',
                 'laplacian term', 'backward')
-
-
-def dmtet_stage_ms(scene, sdf, gen, runs):
-    """(runs, stages) ms of path D steps after a warm-up step: CUDA events
-    around each stage of the same step, so the stages add up to the step."""
-    dmtet_step(scene, sdf, gen)
-    rows = []
-    for _ in range(runs):
-        ev = [torch.cuda.Event(enable_timing=True)]
-        torch.cuda.synchronize()
-        ev[0].record()
-
-        def mark():
-            ev.append(torch.cuda.Event(enable_timing=True))
-            ev[-1].record()
-
-        dmtet_step(scene, sdf, gen, mark)
-        torch.cuda.synchronize()
-        rows.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
-    return np.asarray(rows)
 
 
 def dmtet_step0(dev):
@@ -2444,8 +2531,9 @@ def path_d(dev, card):
         ael).all()), 'path D: metrics finite')
     dmtet_step0(dev)
 
-    stages = dmtet_stage_ms(sc, sdf, gen, 3)
-    steps = stages.sum(1)
+    stages, steps = step_parts_ms(
+        lambda mark: dmtet_step(sc, sdf, gen, mark), 3)
+    check_parts('path D step', DMTET_STAGES, stages, steps)
     step_ms = float(steps.mean())
     with torch.no_grad():
         p2m_ms = time_ms(lambda: point_to_mesh_distance(
@@ -3706,14 +3794,22 @@ def main():
     # on the DIB-R or SPC main paths (main_path_launches)
     for name in mosaic3.KERNELS:
         k = p1['script'][name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route='cuda',
             source='kaolin_tpu_torch/csrc/probes.cu',
             replaces=f'scripts/probe_r5_mosaic3.py:{P1_LINES[name]}',
             launches=c1[name], main_path_launches=0,
             max_abs_err=p1['max_abs_err'][name], ms=k['ms'],
             plain_ms=k['plain_ms'], bound_ms=k['bound_ms'],
-            bound_by=k['bound_by'], library_ms=k['library_ms']))
+            bound_by=k['bound_by'], library_ms=k['library_ms'],
+            device_ms=k['device_ms'],
+            library_device_ms=k['library_device_ms'])
+        for where in ('staging', 'large'):
+            if name in (p1[where] or {}):
+                entry[where] = {key: p1[where][name][key] for key in (
+                    'ms', 'device_ms', 'plain_ms', 'library_ms',
+                    'library_device_ms', 'bound_ms', 'bound_by')}
+        kernels.append(entry)
     k = p2['dummy'][max(p2['dummy'])]
     kernels.append(dict(
         name='dummy_kernel', route='cuda',

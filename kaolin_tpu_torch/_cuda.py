@@ -3,23 +3,34 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  :func:`load` compiles
 it with ``nvcc`` for Hopper (``sm_90a``) into ``build/kaolin_tpu_torch/``
 at the root of the checkout, keyed by a hash of the source and the flags,
-and opens the shared library with ``ctypes``.  Nothing here includes
+and opens the shared library with ``ctypes``.  Nothing there includes
 PyTorch's headers, so a build takes seconds, not minutes.
 
+:func:`load_module` builds ``csrc/<name>.cu`` with ``csrc/<name>_module.cpp``,
+Python entry points that include only PyTorch's tensor and Python-binding
+headers (seconds more, not the minutes of ``torch/extension.h``), and
+imports the result as an extension module: a launch then costs the host
+what a PyTorch op costs.  :func:`stream_getter` gives the current stream
+as an integer.
+
 There is no fallback: when ``nvcc`` cannot be found or the build fails,
-:func:`load` raises.
+:func:`load` and :func:`load_module` raise.
 """
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ['find_nvcc', 'load', 'BUILD_LOG']
+import torch
+
+__all__ = ['find_nvcc', 'load', 'load_module', 'stream_getter', 'BUILD_LOG']
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'kaolin_tpu_torch'
@@ -31,6 +42,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 BUILD_LOG = {}          # name -> nvcc output (registers, shared memory)
 _LIBS = {}
+_MODULES = {}
 _LOCKS = {}             # name -> lock: different sources build in parallel
 _LOCK = threading.Lock()
 
@@ -50,11 +62,28 @@ def find_nvcc():
     return nvcc
 
 
-def _build(name):
-    src = CSRC / f'{name}.cu'
-    code = src.read_bytes()
-    digest = hashlib.sha256(code + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f'lib{name}_{digest[:16]}.so'
+def _module_flags():
+    """(nvcc flags, libraries) for Python entry points over PyTorch's
+    tensors: the interpreter's and PyTorch's headers, PyTorch's C++ ABI;
+    its libraries, found at run time through the rpath."""
+    root = Path(torch.__file__).resolve().parent
+    lib = root / 'lib'
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    return (('-I' + sysconfig.get_paths()['include'],
+             '-I' + str(root / 'include'), f'-D_GLIBCXX_USE_CXX11_ABI={abi}',
+             f'-Xlinker=-rpath,{lib}'),
+            ('-L' + str(lib), '-lc10', '-ltorch', '-ltorch_cpu',
+             '-ltorch_python'))
+
+
+def _build(name, sources, flags, libs=()):
+    """``build/kaolin_tpu_torch/lib<name>_<hash>.so`` from ``sources`` (in
+    ``csrc/``) by one nvcc call with ``flags`` (``libs`` after the sources,
+    where the linker looks for them), unless already built."""
+    srcs = [CSRC / s for s in sources]
+    key = (b''.join(s.read_bytes() for s in srcs)
+           + ' '.join(flags + libs).encode())
+    out = BUILD_DIR / f'lib{name}_{hashlib.sha256(key).hexdigest()[:16]}.so'
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -62,12 +91,12 @@ def _build(name):
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.run([nvcc, *flags, '-o', tmp, *map(str, srcs),
+                               *libs], capture_output=True, text=True)
         BUILD_LOG[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed to build {src.name}:\n'
-                               f'{BUILD_LOG[name]}')
+            raise RuntimeError(f'nvcc failed to build '
+                               f'{", ".join(sources)}:\n{BUILD_LOG[name]}')
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -75,14 +104,51 @@ def _build(name):
     return out
 
 
+def _lock(name):
+    with _LOCK:
+        return _LOCKS.setdefault(name, threading.Lock())
+
+
 def load(name):
     """The ``ctypes.CDLL`` of ``csrc/<name>.cu``, built on first use.
 
     Thread-safe; calls for different sources build them in parallel.
     """
-    with _LOCK:
-        lock = _LOCKS.setdefault(name, threading.Lock())
-    with lock:
+    with _lock(name):
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(_build(name)))
+            _LIBS[name] = ctypes.CDLL(str(_build(name, [f'{name}.cu'],
+                                                 NVCC_FLAGS)))
         return _LIBS[name]
+
+
+def load_module(name):
+    """The extension module ``name``: ``csrc/<name>.cu`` and
+    ``csrc/<name>_module.cpp`` (which defines ``PyInit_<name>``), built on
+    first use into ``lib<name>_module_<hash>.so`` and imported.  Its entry
+    points take tensors and do a PyTorch op's host work in C++.
+
+    Thread-safe; the module is not put in ``sys.modules``.
+    """
+    with _lock(f'{name}_module'):
+        if name not in _MODULES:
+            flags, libs = _module_flags()
+            path = _build(f'{name}_module',
+                          [f'{name}.cu', f'{name}_module.cpp'],
+                          NVCC_FLAGS + flags, libs)
+            spec = importlib.util.spec_from_file_location(name, path)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            _MODULES[name] = module
+        return _MODULES[name]
+
+
+def stream_getter():
+    """A function of a CUDA device index that gives PyTorch's current stream
+    there as an ``int`` handle (the capture stream under
+    ``torch.cuda.graph``): ``torch._C._cuda_getCurrentRawStream``, the call
+    Triton's launcher makes, where this torch has it, else
+    ``torch.cuda.current_stream(index).cuda_stream``."""
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    if raw is not None:
+        return raw
+    return lambda index: torch.cuda.current_stream(index).cuda_stream

@@ -20,8 +20,8 @@ the forward kernel K1 at the DIB-R cell from an instrumented copy of its
 source, on the card only.
 
 Each has ``run(device)``: it checks every kernel against its plain version
-and, on CUDA, returns device times (CUDA events, mean after warm-up) with
-each function's bound, from :mod:`kaolin_tpu_torch.utils.measure` as
+and, on CUDA, returns device times (CUDA events, mean after warm-up; P1's
+also without the host, from a CUDA graph) with each function's bound, from :mod:`kaolin_tpu_torch.utils.measure` as
 ``chip_smoke.py`` takes them.  On the CPU it runs the plain versions at a
 small size and times nothing.  ``python -m kaolin_tpu_torch.probes.<name>``
 runs it on the card and prints one JSON object.

@@ -9,11 +9,10 @@ read, ``ids`` is (NB, 1, CK) int32 rows of ``table`` (M, R, C) float32.
 
 CPU tensors run the plain PyTorch versions (``PLAIN``); CUDA tensors
 launch the kernel or raise.  ``LAUNCHES`` counts launches by
-wrapper name.  Every kernel equals its plain version bit for bit: the sums
+wrapper name (a call captured in a CUDA graph counts once, its replays
+not at all).  Every kernel equals its plain version bit for bit: the sums
 run in the scripts' order.
 """
-
-import ctypes
 
 import torch
 
@@ -80,98 +79,90 @@ PLAIN = {
 
 
 # ---------------------------------------------------------------------------
-# CUDA launches
+# CUDA launches: each wrapper hands its tensors and the current stream to an
+# entry point of the extension module (csrc/probes_module.cpp), which tests
+# them, allocates the output and launches in C++, so a call costs the host
+# about what one PyTorch op costs.  Inputs it refuses come back as None and
+# are diagnosed here.
 
-def _lib():
-    from kaolin_tpu_torch import _cuda
-    lib = _cuda.load('probes')
-    if lib.probe_dummy.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn, args in ((lib.probe_dyn_loop, [p, i, p, p, i, i, p]),
-                         (lib.probe_row_sum, [p, i, p, i, p, p, i, i, i, i,
-                                              p]),
-                         (lib.probe_shift, [p, p, i, i, i, i, i, p]),
-                         (lib.probe_dummy, [p, p, i, i, p])):
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-    return lib
+_F32, _I32 = torch.float32, torch.int32
+_ext = _stream = None       # the extension module, the stream getter
 
 
-def _check(name, t, dtype, ndim, device):
-    if t.device != device or t.dtype != dtype or t.dim() != ndim \
-            or not t.is_contiguous() or t.data_ptr() % 16:
+def _bind():
+    global _ext, _stream
+    if _ext is None:
+        from kaolin_tpu_torch import _cuda
+        _stream = _cuda.stream_getter()
+        _ext = _cuda.load_module('probes')
+    return _ext
+
+
+def _check(name, t, dtype, ndim, index):
+    """Raise ValueError unless ``t`` is a contiguous, 16-byte aligned
+    ``dtype`` tensor of ``ndim`` dims (any for None) on CUDA device
+    ``index``: the extension's test of one input."""
+    if (t.dtype is not dtype or t.get_device() != index
+            or t.data_ptr() & 15 or (ndim is not None and t.dim() != ndim)
+            or not t.is_contiguous()):
         raise ValueError(
             f'{name}: expected a contiguous, 16-byte aligned {dtype} tensor '
-            f'of {ndim} dims on {device}, got {t.dtype} {tuple(t.shape)} on '
-            f'{t.device}')
+            f'of {ndim or "any number of"} dims on cuda:{index}, got '
+            f'{t.dtype} {tuple(t.shape)} on {t.device}')
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _launched(name, rc):
-    if rc != 0:
-        raise RuntimeError(f'probe kernel {name} failed to launch: '
-                           f'cudaError {rc}')
-    LAUNCHES[name] += 1
-
-
-def _on_card(x):
-    """True: run the kernel; False: the plain version (CPU tensor)."""
-    if x.device.type == 'cpu':
-        return False
-    if x.device.type != 'cuda':
+def _plain(name, x, *args):
+    """The plain version, for a CPU tensor ``x``; other devices raise."""
+    if x.device.type != 'cpu':
         raise ValueError(f'no probe kernel for device {x.device}')
-    return True
+    return PLAIN[name](*args)
 
 
-def _check_nbs(nbs, nb, device):
-    _check('nbs', nbs, torch.int32, 2, device)
-    if nbs.shape[0] != nb:
-        raise ValueError(f'nbs: expected {nb} rows, got {nbs.shape[0]}')
+def _reject(name, x, tensors, nbs=None):
+    """Raise for inputs the extension refused: the first of ``tensors``
+    ((label, tensor, dtype, ndim)) that fails its test (:func:`_check`), else
+    ``nbs`` without a row per b (its column 0 is read), else the shapes
+    (rows of x a multiple of 4 floats, the kernels move float4s; with ids
+    and a table, ids (b, 1, CK) and table rows shaped like x[b])."""
+    index = x.get_device()
+    for label, t, dtype, ndim in tensors:
+        _check(label, t, dtype, ndim, index)
+    nb = x.shape[0] if x.dim() else None
+    if nbs is not None and (nbs.shape[0] != nb or not nbs.shape[1]):
+        raise ValueError(f'nbs: expected {nb} rows of at least one count, '
+                         f'got {tuple(nbs.shape)}')
+    rows = (f', ids be ({nb}, 1, CK) and table rows shaped like x[b]'
+            if any(label == 'ids' for label, *_ in tensors) else '')
+    raise ValueError(f'{name}: x[b] must hold a multiple of 4 floats{rows}, '
+                     f'in fewer than 2^31 elements; got x {tuple(x.shape)}'
+                     + ''.join(f', {label} {tuple(t.shape)}'
+                               for label, t, *_ in tensors if label != 'x'))
 
 
 def _row_sum(name, ids, table, x, nbs=None, slots=1):
-    if not _on_card(x):
-        return (PLAIN[name](ids, table, x) if nbs is None
-                else PLAIN[name](nbs, ids, table, x))
-    device = x.device
-    nb = x.shape[0]
-    _check('ids', ids, torch.int32, 3, device)
-    _check('table', table, torch.float32, table.dim(), device)
-    if ids.shape[:2] != (nb, 1) or tuple(table.shape[1:]) != tuple(
-            x.shape[1:]):
-        raise ValueError(f'{name}: ids must be ({nb}, 1, CK) and table rows '
-                         f'shaped like x[b]; got ids {tuple(ids.shape)}, '
-                         f'table {tuple(table.shape)}, x {tuple(x.shape)}')
-    if nbs is not None:
-        _check_nbs(nbs, nb, device)
-    n = x[0].numel()
-    out = torch.empty_like(x)
-    rc = _lib().probe_row_sum(
-        _ptr(ids), ids.shape[2], _ptr(nbs if nbs is not None else ids),
-        2, _ptr(table), _ptr(out), nb, n, slots, int(nbs is not None),
-        _stream(device))
-    _launched(name, rc)
+    if not x.is_cuda:
+        return (_plain(name, x, ids, table, x) if nbs is None
+                else _plain(name, x, nbs, ids, table, x))
+    ext = _ext or _bind()
+    stream = _stream(x.get_device())
+    out = (ext.row_sum(ids, table, x, slots, stream) if nbs is None
+           else ext.bag_sum(nbs, ids, table, x, stream))
+    if out is None:
+        _reject(name, x, (('ids', ids, _I32, 3), ('table', table, _F32, None))
+                + (() if nbs is None else (('nbs', nbs, _I32, 2),)), nbs)
+    LAUNCHES[name] += 1
     return out
 
 
 def kA(nbs, x):
     """x[b] added nbs[b, 0] times, from 0 (a loop bound read at run
     time)."""
-    if not _on_card(x):
-        return _kA_torch(nbs, x)
-    _check('x', x, torch.float32, x.dim(), x.device)
-    _check_nbs(nbs, x.shape[0], x.device)
-    out = torch.empty_like(x)
-    rc = _lib().probe_dyn_loop(_ptr(nbs), 2, _ptr(x), _ptr(out), x.shape[0],
-                               x[0].numel(), _stream(x.device))
-    _launched('kA', rc)
+    if not x.is_cuda:
+        return _plain('kA', x, nbs, x)
+    out = (_ext or _bind()).dyn_loop(nbs, x, _stream(x.get_device()))
+    if out is None:
+        _reject('kA', x, (('x', x, _F32, None), ('nbs', nbs, _I32, 2)), nbs)
+    LAUNCHES['kA'] += 1
     return out
 
 
@@ -186,19 +177,19 @@ def kC(ids, table, x):
 
 
 def kD(nbs, ids, table, x):
-    """sum over j < nbs[b, 0] of table[ids[b, 0, j]], one row buffer."""
+    """sum over j < nbs[b, 0] of table[ids[b, 0, j]]; every row of a short
+    bag in flight before the first add."""
     return _row_sum('kD', ids, table, x, nbs=nbs)
 
 
 def _shift(name, x):
     op, s = _SHIFTS[name]
-    if not _on_card(x):
-        return _shift_torch(x, op, s)
-    _check('x', x, torch.float32, 3, x.device)
-    out = torch.empty_like(x)
-    rc = _lib().probe_shift(_ptr(x), _ptr(out), x.shape[0], x.shape[1],
-                            x.shape[2], op, s, _stream(x.device))
-    _launched(name, rc)
+    if not x.is_cuda:
+        return _plain(name, x, x)
+    out = (_ext or _bind()).shift(x, op, s, _stream(x.get_device()))
+    if out is None:
+        _reject(name, x, (('x', x, _F32, 3),))
+    LAUNCHES[name] += 1
     return out
 
 
@@ -224,11 +215,10 @@ def kH(x):
 
 def dummy(x):
     """P2: 2 x, one CTA per step of x (nsteps, ...)."""
-    if not _on_card(x):
-        return _dummy_torch(x)
-    _check('x', x, torch.float32, x.dim(), x.device)
-    out = torch.empty_like(x)
-    rc = _lib().probe_dummy(_ptr(x), _ptr(out), x.shape[0], x[0].numel(),
-                            _stream(x.device))
-    _launched('dummy', rc)
+    if not x.is_cuda:
+        return _plain('dummy', x, x)
+    out = (_ext or _bind()).dummy(x, _stream(x.get_device()))
+    if out is None:
+        _reject('dummy', x, (('x', x, _F32, None),))
+    LAUNCHES['dummy'] += 1
     return out

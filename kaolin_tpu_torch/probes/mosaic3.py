@@ -7,10 +7,18 @@ and row rolls (kE..kH).  On the card each is a CUDA kernel
 (``csrc/probes.cu``, wrappers in :mod:`._kernels`), and the question is
 what each costs; kB against kC at K3's staging shape (one row of 4 x 192
 cell values per candidate cell, 61 cells for each of 4,452 blocks) is the
-gain of a double-buffered row copy where K3 stages its cell rows.
+gain of a double-buffered row copy where K3 stages its cell rows.  kA is
+also timed at a large shape (P2's grid), where its bound lies above the
+launch latency.  Every time comes twice: ``ms``, per call as a Python
+caller pays it, and ``device_ms``, the device's time without the host (a
+CUDA graph's replay); a library call that computes the same function is
+timed both ways beside it.
 
 Run on the card: ``python -m kaolin_tpu_torch.probes.mosaic3``.
 """
+
+import ctypes
+import time
 
 import numpy as np
 import torch
@@ -18,10 +26,12 @@ import torch.nn.functional as F
 
 from kaolin_tpu_torch.probes import (_kernels, main, max_abs_err, same_bits,
                                      seeded)
-from kaolin_tpu_torch.utils.measure import bound_ms, time_ms
+from kaolin_tpu_torch.utils.measure import (bound_ms, device_ms, replayed,
+                                            time_ms)
 
-__all__ = ['NB', 'R', 'C', 'M', 'CK', 'KERNELS', 'inputs', 'call', 'check',
-           'run']
+__all__ = ['NB', 'R', 'C', 'M', 'CK', 'KERNELS', 'LARGE_NB', 'inputs',
+           'large_inputs', 'call', 'check', 'check_captured', 'measure',
+           'host_us', 'run']
 
 NB, R, C, M, CK = 64, 8, 128, 256, 8       # the script's shapes
 KERNELS = ('kA', 'kB', 'kC', 'kD', 'kE', 'kF', 'kG', 'kH')
@@ -29,7 +39,12 @@ ROW_SUMS = ('kB', 'kC', 'kD')
 # K3's staging shape on the SPC cell: active blocks, the most candidate
 # cells of a block, one cell row (x, y, z, pid) x cell width
 STAGING = dict(nb=4452, ck=61, rows=(4, 192))
+# kA's large shape: P2's 65,536 blocks of (R, C) float32, where the bound
+# (~0.16 ms, bytes) lies above the launch latency
+LARGE_NB = 65536
 ITERS, PLAIN_ITERS = 50, 5      # timed calls of a kernel, a plain version
+LARGE_ITERS = 20
+HOST_CALLS = 2000                 # calls per part in host_us
 
 
 def inputs(device, nb=NB, rows=(R, C), m=M, ck=CK):
@@ -117,9 +132,23 @@ def _library(name, inp):
     return None
 
 
-def measure(inp, names):
-    """Device times of the kernels in ``names`` on ``inp`` beside their
-    plain versions, one library call where there is one, and the bound."""
+def _in_turns(timer, kernel, lib, iters):
+    """(kernel ms, library ms or None) by ``timer``, taken in turns
+    (kernel, library, library, kernel) and averaged, so a drift of the
+    card or the host falls on both alike."""
+    if lib is None:
+        return timer(kernel, iters), None
+    k0, l0, l1, k1 = (timer(f, iters) for f in (kernel, lib, lib, kernel))
+    return (k0 + k1) / 2, (l0 + l1) / 2
+
+
+def measure(inp, names, iters=ITERS):
+    """Times of the kernels in ``names`` on ``inp`` beside their plain
+    versions, one library call where there is one, and the bound.  Each
+    kernel and library call has two: ``ms`` per call as a Python caller
+    pays it (:func:`time_ms`) and ``device_ms`` without the host
+    (:func:`device_ms`, one CUDA graph of ``iters`` calls).  The library
+    call's inputs (kD's bag and offsets too) are made before it is timed."""
     out = {}
     for name in names:
         args = _args(name, inp)
@@ -128,39 +157,121 @@ def measure(inp, names):
         lib = _library(name, inp)
         nbytes, flops = _work(name, inp)
         bound, by = bound_ms(nbytes, flops)
+        ms, lib_ms = _in_turns(time_ms, lambda: kernel(*args), lib, iters)
+        dev_ms, lib_dev_ms = _in_turns(device_ms, lambda: kernel(*args), lib,
+                                       iters)
         out[name] = dict(
-            ms=time_ms(lambda: kernel(*args), ITERS),
+            ms=ms, device_ms=dev_ms,
             plain_ms=time_ms(lambda: plain(*args), PLAIN_ITERS),
-            library_ms=None if lib is None else time_ms(lib, ITERS),
+            library_ms=lib_ms, library_device_ms=lib_dev_ms,
             bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
     return out
 
 
+def host_us(inp, calls=HOST_CALLS):
+    """Host microseconds per call (``time.perf_counter`` over ``calls``
+    calls, no sync inside) of kA and kD beside their library calls, and of
+    the parts of a launch from Python: what :func:`time_ms` reads where the
+    host is slower than the device.  The wrappers' route (the extension
+    module's entry: test, allocation and launch in C++) is timed beside the
+    parts of the ctypes route (``torch.empty_like``, the ctypes call of the
+    same C entry with and without its launch, the stream)."""
+    from kaolin_tpu_torch import _cuda
+    x, nbs = inp['x'], inp['nbs']
+    i = x.get_device()
+    ext = _kernels._bind()
+    stream = _cuda.stream_getter()
+    c_entry = _cuda.load('probes').probe_dyn_loop
+    c_entry.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p]
+    c_entry.restype = ctypes.c_int
+    out = torch.empty_like(x)
+    ptrs = nbs.data_ptr(), nbs.shape[1], x.data_ptr(), out.data_ptr()
+    nb, n = x.shape[0], x[0].numel()
+    parts = {
+        'kA': lambda: _kernels.kA(nbs, x),
+        'torch.mul': _library('kA', inp),
+        'kD': lambda: call('kD', inp),
+        'F.embedding_bag': _library('kD', inp),
+        'kA entry of the extension': lambda: ext.dyn_loop(nbs, x, stream(i)),
+        'torch.empty_like': lambda: torch.empty_like(x),
+        'ctypes entry, no launch': lambda: c_entry(*ptrs, 0, n, stream(i)),
+        'ctypes entry and launch': lambda: c_entry(*ptrs, nb, n, stream(i)),
+        'stream, raw': lambda: stream(i),
+        'stream, torch.cuda.current_stream': (
+            lambda: torch.cuda.current_stream(i).cuda_stream),
+    }
+    res = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        res[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return res
+
+
+def large_inputs(device):
+    """kA's large shape: P2's grid of LARGE_NB blocks of (R, C) float32,
+    ``x`` from numpy seed 2, ``nbs`` from ``default_rng(1)`` in 1..CK (as
+    :func:`inputs` draws them)."""
+    return dict(inputs(device, LARGE_NB),
+                x=seeded((LARGE_NB, R, C), 2, device))
+
+
+def check_captured(inp, names=KERNELS):
+    """Each kernel's launch captured in a CUDA graph and replayed against
+    the same launch made eagerly, bit for bit; raises on a difference."""
+    for name in names:
+        eager = call(name, inp)
+        graph = replayed(lambda: call(name, inp))
+        if not same_bits(eager, graph):
+            raise RuntimeError(f'probe kernel {name}: a captured launch '
+                               f'differs from an eager one (max |d| '
+                               f'{max_abs_err(eager, graph)})')
+
+
 def run(device='cuda', table_rows=None):
     """Check kA..kH against their plain versions on the script's inputs and
-    on a random ``x`` (numpy seed 2); on CUDA also time them there and time
-    kB, kC, kD at K3's staging shape with ``table_rows`` table rows (the
-    cell table's row count; skipped when None).
+    on a random ``x`` (numpy seed 2), bit for bit; with ``table_rows`` (the
+    cell table's row count) also kB, kC, kD at K3's staging shape.  On CUDA
+    also kA at its large shape (:func:`large_inputs`), each kernel's
+    captured launch against its eager one, and the times
+    (:func:`measure`) at the script's shape, kA's large shape and the
+    staging shape, and the host's share of a launch (:func:`host_us`).
 
     Returns dict(max_abs_err={name: x}, script={name: times},
-    staging={name: times} or None); no times on the CPU.
+    staging={name: times} or None, large={'kA': times}, host_us={part:
+    us}); no times on the CPU.
     """
     device = torch.device(device)
     script = inputs(device)
     errs = check(script)
     noisy = dict(script, x=seeded((NB, R, C), 2, device))
-    for name, e in check(noisy).items():
-        errs[name] = max(errs[name], e)
-    res = dict(max_abs_err=errs, script=None, staging=None)
+
+    def fold(more):
+        for name, e in more.items():
+            errs[name] = max(errs[name], e)
+
+    fold(check(noisy))
+    res = dict(max_abs_err=errs, script=None, staging=None, large=None,
+               host_us=None)
     staging = None
     if table_rows is not None:
         staging = inputs(device, STAGING['nb'], STAGING['rows'],
                          int(table_rows), STAGING['ck'])
-        for name, e in check(staging, ROW_SUMS).items():
-            errs[name] = max(errs[name], e)
+        fold(check(staging, ROW_SUMS))
     if device.type != 'cuda':
         return res
+    large = large_inputs(device)
+    fold(check(large, ('kA',)))
+    check_captured(noisy)
+    res['host_us'] = host_us(script)
     res['script'] = measure(script, KERNELS)
+    res['large'] = measure(large, ('kA',), LARGE_ITERS)
     if staging is not None:
         res['staging'] = measure(staging, ROW_SUMS)
     return res

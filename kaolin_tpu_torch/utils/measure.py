@@ -1,9 +1,15 @@
-"""What the port's measurements share: the card's peaks, the bound, a
-device timer, the card's name and the SPC cell's trace settings.
+"""What the port's measurements share: the card's peaks, the bound, two
+timers, the card's name and the SPC cell's trace settings.
 
 ``chip_smoke.py`` times the main paths with these, and the probes
 (:mod:`kaolin_tpu_torch.probes`) time their kernels with the same, so a
 main-path time and a probe's time of the same kernel are comparable.
+
+The two timers read different things.  :func:`time_ms` is the time per
+call that a Python caller pays: CUDA events around back-to-back calls, so
+where a call's host cost exceeds its device time it measures the host.
+:func:`device_ms` is the device's time per call without the host: the calls
+captured once in a CUDA graph and the graph's replay timed.
 """
 
 import subprocess
@@ -11,7 +17,7 @@ import subprocess
 import torch
 
 __all__ = ['HBM_BYTES_PER_S', 'FP32_FLOP_PER_S', 'TRACE', 'time_ms',
-           'bound_ms', 'card']
+           'device_ms', 'replayed', 'bound_ms', 'card']
 
 # H100 SXM published peaks (NVIDIA's data sheet, at the 700 W power limit):
 # device memory and float32 outside the tensor cores
@@ -39,6 +45,55 @@ def time_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _captured(fn, iters, warmup):
+    """(graph, last result): ``iters`` calls of fn() captured in one CUDA
+    graph, after ``warmup`` eager calls on a side stream (the first call of a
+    kernel loads its module, which a capture cannot)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('a CUDA graph times the CUDA card, and '
+                           'torch.cuda.is_available() is False')
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            out = fn()
+    return graph, out
+
+
+def device_ms(fn, iters, warmup=1):
+    """Mean device time of one fn() call, host cost left out: ``iters``
+    calls captured in one CUDA graph (:func:`_captured`), one replay to warm
+    up, then CUDA events around one replay.  fn() must be capturable (no
+    host sync); raises without CUDA, never times the CPU."""
+    graph, _ = _captured(fn, iters, warmup)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def replayed(fn, warmup=1):
+    """fn()'s float tensor as one CUDA-graph replay computes it: fn captured
+    once (after ``warmup`` eager calls), its output filled with NaN, the
+    graph replayed, the output cloned; for checking that a captured launch
+    equals an eager one."""
+    graph, out = _captured(fn, 1, warmup)
+    out.fill_(float('nan'))
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone()
 
 
 def bound_ms(nbytes, flops):

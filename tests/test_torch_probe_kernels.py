@@ -112,6 +112,72 @@ def test_cuda_p1_matches_plain(name):
         mosaic3.check(staging, (name,))
 
 
+def _noisy(inp, seed=2):
+    """``inp`` with seeded normal x and table rows (sums then show their
+    order)."""
+    rng = np.random.default_rng(seed)
+    return dict(inp, **{k: torch.as_tensor(rng.standard_normal(
+        tuple(inp[k].shape)).astype(np.float32), device=inp[k].device)
+        for k in ('x', 'table')})
+
+
+@cuda
+@pytest.mark.parametrize('name', ['kA', 'kD'])
+def test_cuda_redesigned_p1_counts(name):
+    """kA and kD on random x and rows with every count 1..8, with all
+    counts >= 6 (where kA is not x * n), and with counts outside 1..CK
+    (0, negative, past CK: kD clamps to 0..CK as its plain version)."""
+    inp = _noisy(mosaic3.inputs('cuda'))
+    nb, ck = mosaic3.NB, mosaic3.CK
+    rng = np.random.default_rng(5)
+    for counts in (rng.permutation(np.arange(nb) % ck + 1),
+                   rng.integers(6, ck + 1, nb),
+                   rng.integers(-2, ck + 4, nb)):
+        for cols in (2, 1, 3):          # column 0 read at nbs' own stride
+            nbs = np.stack([counts, counts[::-1], counts + 1][:cols], 1)
+            inp['nbs'] = torch.as_tensor(nbs.astype(np.int32), device='cuda')
+            mosaic3.check(inp, (name,))
+    if name == 'kA':
+        inp['nbs'] = torch.full((nb, 2), 7, dtype=torch.int32, device='cuda')
+        out = _kernels.kA(inp['nbs'], inp['x'])
+        assert int((out != inp['x'] * 7).sum()) > out.numel() // 4
+
+
+@cuda
+def test_cuda_kA_large_shape():
+    inp = mosaic3.large_inputs('cuda')
+    n0 = _kernels.LAUNCHES['kA']
+    mosaic3.check(inp, ('kA',))
+    assert _kernels.LAUNCHES['kA'] == n0 + 1
+
+
+@cuda
+@pytest.mark.parametrize('noisy', [False, True])
+def test_cuda_row_sums_staging_shape(noisy):
+    """kB, kC, kD at K3's staging shape with the SPC cell's 15,561 table
+    rows (the script's integer rows, then random ones)."""
+    inp = mosaic3.inputs('cuda', mosaic3.STAGING['nb'],
+                         mosaic3.STAGING['rows'], 15561,
+                         mosaic3.STAGING['ck'])
+    mosaic3.check(_noisy(inp) if noisy else inp, mosaic3.ROW_SUMS)
+
+
+@cuda
+@pytest.mark.parametrize('name', mosaic3.KERNELS)
+def test_cuda_captured_launch_equals_eager(name):
+    mosaic3.check_captured(_noisy(mosaic3.inputs('cuda')), (name,))
+
+
+@cuda
+def test_cuda_probe_launches_count_one_per_call():
+    inp = mosaic3.inputs('cuda')
+    for name in mosaic3.KERNELS:
+        n0 = _kernels.LAUNCHES[name]
+        for _ in range(3):
+            mosaic3.call(name, inp)
+        assert _kernels.LAUNCHES[name] == n0 + 3
+
+
 @cuda
 def test_cuda_p2_matches_plain():
     n0 = _kernels.LAUNCHES['dummy']
@@ -129,3 +195,15 @@ def test_cuda_probe_wrappers_check_inputs():
         _kernels.kA(inp['nbs'][:3], inp['x'])
     with pytest.raises(ValueError, match='x'):
         _kernels.kE(inp['x'][..., :5])
+    with pytest.raises(ValueError, match='nbs'):
+        _kernels.kD(inp['nbs'].long(), inp['ids'], inp['table'], inp['x'])
+    with pytest.raises(ValueError, match='table'):
+        _kernels.kD(inp['nbs'], inp['ids'], inp['table'].double(), inp['x'])
+    with pytest.raises(ValueError, match='multiple of 4'):
+        _kernels.kA(inp['nbs'], torch.ones((mosaic3.NB, 3, 3),
+                                           device='cuda'))
+    with pytest.raises(ValueError, match='nbs'):
+        _kernels.kA(inp['nbs'].cpu(), inp['x'])
+    with pytest.raises(ValueError, match='nbs'):
+        _kernels.kD(inp['nbs'][:, :0].contiguous(), inp['ids'],
+                    inp['table'], inp['x'])

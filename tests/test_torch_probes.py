@@ -10,7 +10,8 @@ The port's side runs the plain PyTorch versions (CPU tensors).
 
 Tolerances:
 * P1, P2: bit for bit (sums of integer table rows are exact in float32,
-  the other probes add two floats);
+  the other probes add two floats; kA and kD also on random x and table
+  rows, where the order of the additions shows);
 * P3 stages 1-4: bit for bit (t_near, t_far, pidx, count), as K3 is against
   the JAX trace kernel;
 * P3 stages 5-6: t_near and count bit for bit; (t_far, pidx) equal up to
@@ -32,6 +33,7 @@ import torch
 
 from kaolin_tpu_torch.probes import _kernels, kbisect, mosaic3, stages
 from kaolin_tpu_torch.render.spc._trace import STAGES, trace_staged
+from kaolin_tpu_torch.utils import measure
 
 SCRIPTS = Path(__file__).resolve().parents[1] / 'scripts'
 NBS = 8
@@ -54,8 +56,9 @@ def scripts():
 # ---------------------------------------------------------------------------
 # P1
 
-def _jax_p1(m, name, x):
-    """The script's call2d for kernel ``name``, in interpret mode."""
+def _jax_p1(m, name, x, nbs=None, table=None):
+    """The script's call2d for kernel ``name``, in interpret mode; ``nbs``
+    and ``table`` (numpy) replace the script's own."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
@@ -66,13 +69,15 @@ def _jax_p1(m, name, x):
     smem = pl.BlockSpec(memory_space=pltpu.SMEM)
     anyspace = pl.BlockSpec(memory_space=pltpu.ANY)
     slot = (pltpu.VMEM((R, C), jnp.float32), pltpu.SemaphoreType.DMA)
+    nbs = m.nbs if nbs is None else jnp.asarray(nbs)
+    table = m.table if table is None else jnp.asarray(table)
     extra = {
-        'kA': ((m.nbs,), (smem,), ()),
-        'kB': ((m.ids, m.table), (row, anyspace),
+        'kA': ((nbs,), (smem,), ()),
+        'kB': ((m.ids, table), (row, anyspace),
                (pltpu.VMEM((2, R, C), jnp.float32),
                 pltpu.SemaphoreType.DMA((2,)))),
-        'kC': ((m.ids, m.table), (row, anyspace), slot),
-        'kD': ((m.nbs, m.ids, m.table), (smem, row, anyspace), slot),
+        'kC': ((m.ids, table), (row, anyspace), slot),
+        'kD': ((nbs, m.ids, table), (smem, row, anyspace), slot),
     }.get(name, ((), (), ()))
     extra_in, extra_specs, scratch = extra
     out = pl.pallas_call(
@@ -105,6 +110,93 @@ def test_p1_matches_script(scripts, name, x_kind):
     ref = _jax_p1(m, name, inp['x'].numpy())
     np.testing.assert_array_equal(out.numpy().view(np.int32),
                                   ref.view(np.int32))
+
+
+def _counts(kind, nb, ck):
+    """(nb, 2) int32 counts: 'every' uses each of 1..ck in column 0 (a
+    seeded permutation), 'ge6' draws 6..ck, where x * n and n repeated
+    additions of x round differently."""
+    rng = np.random.default_rng(5)
+    if kind == 'every':
+        col = rng.permutation(np.arange(nb) % ck + 1)
+        return np.stack([col, col[::-1]], 1).astype(np.int32)
+    return rng.integers(6, ck + 1, (nb, 2)).astype(np.int32)
+
+
+@pytest.mark.parametrize('counts', ['every', 'ge6'])
+@pytest.mark.parametrize('name', ['kA', 'kD'])
+def test_p1_counts_match_script(scripts, name, counts):
+    """kA and kD (the kernels redesigned for the card) against the script
+    on seeded random x and table rows, with every count 1..8 in use, and
+    with all counts >= 6: the sums stay in the script's order, bit for
+    bit, and kA stays repeated addition (x * n differs there)."""
+    m = scripts['mosaic3']
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((m.NB, m.R, m.C)).astype(np.float32)
+    table = rng.standard_normal((m.M, m.R, m.C)).astype(np.float32)
+    nbs = _counts(counts, m.NB, m.CK)
+    if counts == 'every':
+        assert set(nbs[:, 0]) == set(range(1, m.CK + 1))
+    inp = dict(mosaic3.inputs('cpu'), x=torch.as_tensor(x),
+               table=torch.as_tensor(table), nbs=torch.as_tensor(nbs))
+    n0 = _kernels.LAUNCHES[name]
+    out = mosaic3.call(name, inp).numpy()
+    assert _kernels.LAUNCHES[name] == n0
+    ref = _jax_p1(m, name, x, nbs=nbs, table=table)
+    np.testing.assert_array_equal(out.view(np.int32), ref.view(np.int32))
+    if name == 'kA' and counts == 'ge6':
+        product = x * nbs[:, 0, None, None].astype(np.float32)
+        assert int((product != out).sum()) > out.size // 4
+
+
+def _wrapper_args(name):
+    inp = mosaic3.inputs('cpu')
+    inp['x'] = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        inp['x'].shape).astype(np.float32))
+    return mosaic3._args(name, inp) if name != 'dummy' else (inp['x'],)
+
+
+@pytest.mark.parametrize('name', mosaic3.KERNELS + ('dummy',))
+def test_probe_wrappers_on_cpu_run_plain(monkeypatch, name):
+    """A wrapper given CPU tensors runs its plain version and launches
+    nothing: no C function is bound or called, no launch is counted."""
+    class NoLaunch:
+        def __getattr__(self, entry):
+            raise AssertionError('a probe kernel was launched for CPU '
+                                 'tensors')
+
+    def no_bind():
+        raise AssertionError('the probe kernels were built or loaded for '
+                             'CPU tensors')
+
+    monkeypatch.setattr(_kernels, '_ext', NoLaunch())
+    monkeypatch.setattr(_kernels, '_bind', no_bind)
+    args = _wrapper_args(name)
+    before = dict(_kernels.LAUNCHES)
+    out = getattr(_kernels, name)(*args)
+    assert _kernels.LAUNCHES == before
+    ref = _kernels.PLAIN[name](*args)
+    np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                  ref.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize('what', ['kA', 'kD', 'kA library', 'kD library'])
+@pytest.mark.parametrize('timer', ['device_ms', 'replayed'])
+def test_graph_timers_raise_without_cuda(monkeypatch, timer, what):
+    """device_ms (and the capture check) time the card only: without CUDA
+    they raise before calling the function, never timing the CPU."""
+    name, *lib = what.split()
+    inp = mosaic3.inputs('cpu')
+    fn = (mosaic3._library(name, inp) if lib
+          else (lambda: mosaic3.call(name, inp)))
+    calls = []
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='is_available'):
+        if timer == 'device_ms':
+            measure.device_ms(lambda: calls.append(fn()), 5)
+        else:
+            measure.replayed(lambda: calls.append(fn()))
+    assert calls == []
 
 
 # ---------------------------------------------------------------------------
