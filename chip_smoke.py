@@ -55,13 +55,20 @@ the TPU probe scripts), each driven through its entry point ``run`` with
 its kernels' launch counts set to 0 just before and read just after:
 
 11. P1, ``probes.mosaic3``: kernels kA..kH against their plain versions on
-    the script's inputs and a random x, bit for bit, and kB/kC/kD at K3's
+    the script's inputs and a random x, bit for bit, kB/kC/kD at K3's
     staging shape (4,452 blocks x 61 rows of 4 x 192 from a table of the
-    level-10 cell table's row count); their times;
-12. P2, ``probes.stages``: the dummy kernel against 2 x, ns per CTA at
-    65,536 and 262,144 CTAs beside ``torch.mul``; the trace of the SPC cell
-    by stage (culling candidates, block order, gathers, the whole trace,
-    K3, output fills, the trace with the offset pass after K3);
+    level-10 cell table's row count) and kA, kE..kH at the large shape
+    (65,536 x 8 x 128); captured launches against eager ones; their times
+    by both timers beside the library call's, in turns: kB (rows staged in
+    shared memory by TMA bulk copies, its ring's slot count) against kC
+    (rows straight into registers), and kE..kH against 50 % of their
+    bound;
+12. P2, ``probes.stages``: the dummy kernel (TMA in and out) against 2 x
+    and its captured launch against the eager one, at 65,536 and 262,144
+    steps in turns with ``torch.mul`` by both timers, its share of the
+    bound; the trace of the SPC cell by stage (culling candidates, block
+    order, gathers, the whole trace, K3, output fills, the trace with the
+    offset pass after K3);
 13. P3, ``probes.kbisect``: K3 cut at stages 1-6 against the plain version
     on the script's inputs, on a scene with rays past kbuf, and on phase
     8's dense level-6 octree; at the SPC cell every stage against plain
@@ -1252,11 +1259,13 @@ def probe_p1(spc, card):
     t0 = time.perf_counter()
     res, counts = _probe_path(mosaic3.run, spc['o'].device, table_rows=rows)
     print(f'P1 kA..kH vs plain (script inputs, random x, kB/kC/kD at '
-          f'K3\'s staging shape {mosaic3.STAGING} with {rows} table rows, kA '
-          f'at {mosaic3.LARGE_NB} x {mosaic3.R} x {mosaic3.C}): bitwise '
-          f'equal, max|d| {max(res["max_abs_err"].values()):.1e}; every '
-          f'kernel\'s launch captured in a CUDA graph equals its eager '
-          f'launch; launches {counts}; {time.perf_counter() - t0:.1f} s')
+          f'K3\'s staging shape {mosaic3.STAGING} with {rows} table rows, '
+          f'{"/".join(mosaic3.LARGE)} at {mosaic3.LARGE_NB} x {mosaic3.R} x '
+          f'{mosaic3.C}): bitwise equal, max|d| '
+          f'{max(res["max_abs_err"].values()):.1e}; every kernel\'s launch '
+          f'captured in a CUDA graph equals its eager launch (kB/kC/kD also '
+          f'at the staging shape); launches {counts}; '
+          f'{time.perf_counter() - t0:.1f} s')
     print(f'[{card}] P1 times: per call (time_ms: events around '
           f'{mosaic3.ITERS} back-to-back Python calls) / on the device '
           f'(device_ms: one CUDA graph of the same calls, host cost out); '
@@ -1282,10 +1291,28 @@ def probe_p1(spc, card):
           f'large shape {la["device_ms"]:.4f} ms = '
           f'{la["bound_ms"] / la["device_ms"]:.1%} of its bound (>= 50 %: '
           f'{la["bound_ms"] / la["device_ms"] >= 0.5})')
-    sb, sc = res['staging']['kB'], res['staging']['kC']
-    print(f'[{card}] P1 at K3\'s staging shape: double-buffered kB '
-          f'{sb["ms"]:.4f} ms vs single-slot kC {sc["ms"]:.4f} ms '
-          f'(kC / kB = {sc["ms"] / sb["ms"]:.3f})')
+    for where, row in (('script', mosaic3.R * mosaic3.C),
+                       ('staging', mosaic3.STAGING['rows'][0]
+                        * mosaic3.STAGING['rows'][1])):
+        sb, sc = res[where]['kB'], res[where]['kC']
+        print(f'[{card}] P1 {where}: kB (TMA ring of {PK.KB_SLOTS} row slots, '
+              f'{PK.kb_smem_bytes(row)} B of shared memory a CTA) '
+              f'{sb["ms"]:.4f} / {sb["device_ms"]:.4f} ms against kC (rows '
+              f'into registers, kD\'s kernel) {sc["ms"]:.4f} / '
+              f'{sc["device_ms"]:.4f} ms (per call / device; kC / kB on the '
+              f'device {sc["device_ms"] / sb["device_ms"]:.3f}); '
+              f'F.embedding_bag {sb["library_ms"]:.4f} / '
+              f'{sb["library_device_ms"]:.4f}; bound {sb["bound_ms"]:.4f} '
+              f'ms: kB {sb["bound_ms"] / sb["device_ms"]:.1%}, kC '
+              f'{sc["bound_ms"] / sc["device_ms"]:.1%}')
+    shares = {name: res['large'][name]['bound_ms']
+              / res['large'][name]['device_ms'] for name in mosaic3.SHIFTS}
+    verdict = ('every one >= 50 %: left alone' if min(shares.values()) >= 0.5
+               else 'under 50 %: shift_kernel is next')
+    print(f'[{card}] P1 kE..kH at {mosaic3.LARGE_NB} x {mosaic3.R} x '
+          f'{mosaic3.C}: share of the bound on the device '
+          + ', '.join(f'{k} {v:.1%}' for k, v in shares.items())
+          + f'; verdict: {verdict}')
     _check(all(counts[k] >= 1 for k in mosaic3.KERNELS),
            'every P1 kernel launched on its path')
     return res, counts
@@ -1298,13 +1325,23 @@ def probe_p2(spc, card):
     t0 = time.perf_counter()
     res, counts = _probe_path(stages.run, spc['o'].device, cell=cell,
                               offset_after=False)       # phase 10 has it
-    print(f'P2 dummy kernel vs 2 x: bitwise equal; launches {counts["dummy"]}'
-          f'; {time.perf_counter() - t0:.1f} s')
+    print(f'P2 dummy kernel vs 2 x: bitwise equal, its captured launch equal '
+          f'to its eager one; launches {counts["dummy"]}; '
+          f'{time.perf_counter() - t0:.1f} s')
     for n, t in res['dummy'].items():
-        print(f'[{card}] P2 dummy grid, {n} CTAs of 8 x 128 f32: '
-              f'{t["ms"]:.4f} ms = {t["ns_per_cta"]:.2f} ns per CTA; '
-              f'torch.mul {t["library_ms"]:.4f} ms; bound '
-              f'{t["bound_ms"]:.4f} ms ({t["bound_by"]})')
+        print(f'[{card}] P2 dummy kernel (a CTA per {PK.P2_TILE_BYTES} B '
+              f'tile, TMA in and out), {n} steps of 8 x 128 f32: '
+              f'{t["ms"]:.4f} ms per '
+              f'call / {t["device_ms"]:.4f} ms on the device '
+              f'({t["device_ns_per_step"]:.3f} ns per step); torch.mul '
+              f'{t["library_ms"]:.4f} / {t["library_device_ms"]:.4f} (in '
+              f'turns, {stages.P2_ITERS} calls a turn); plain '
+              f'{t["plain_ms"]:.4f}; bound {t["bound_ms"]:.4f} ms '
+              f'({t["bound_by"]}): kernel {t["bound_ms"] / t["device_ms"]:.1%}'
+              f', torch.mul {t["bound_ms"] / t["library_device_ms"]:.1%}; '
+              f'device <= torch.mul: '
+              f'{t["device_ms"] <= t["library_device_ms"]}; peak '
+              f'{t["peak_gib"]:.2f} GiB')
     tr = res['trace']
     print(f'[{card}] trace by stage ({res["counts"]}): S1 candidates '
           f'{tr["s1"]:.3f} ms, S1b + order {tr["s1b"]:.3f} ms, S2 + gathers '
@@ -3815,9 +3852,14 @@ def main():
         name='dummy_kernel', route='cuda',
         source='kaolin_tpu_torch/csrc/probes.cu',
         replaces='scripts/probe_r5_stages.py:166', launches=c2['dummy'],
-        main_path_launches=0, max_abs_err=k['max_abs_err'], ms=k['ms'],
-        plain_ms=k['plain_ms'], bound_ms=k['bound_ms'],
-        bound_by=k['bound_by'], library_ms=k['library_ms']))
+        main_path_launches=0,
+        max_abs_err=max(d['max_abs_err'] for d in p2['dummy'].values()),
+        ms=k['ms'], plain_ms=k['plain_ms'], bound_ms=k['bound_ms'],
+        bound_by=k['bound_by'], library_ms=k['library_ms'],
+        device_ms=k['device_ms'], library_device_ms=k['library_device_ms'],
+        steps={n: {key: d[key] for key in (
+            'ms', 'device_ms', 'plain_ms', 'library_ms', 'library_device_ms',
+            'bound_ms', 'bound_by')} for n, d in p2['dummy'].items()}))
     for st, k in p3['stages'].items():
         kernels.append(dict(
             name=f'spc_trace_kernel<STAGE={st}>', route='cuda',

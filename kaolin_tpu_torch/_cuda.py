@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  :func:`load` compiles
 it with ``nvcc`` for Hopper (``sm_90a``) into ``build/kaolin_tpu_torch/``
-at the root of the checkout, keyed by a hash of the source and the flags,
-and opens the shared library with ``ctypes``.  Nothing there includes
+at the root of the checkout, keyed by a hash of the sources, every header
+of ``csrc/`` (``*.cuh``, which the sources include) and the flags
+(:func:`build_key`), and opens the shared library with ``ctypes``.  Nothing there includes
 PyTorch's headers, so a build takes seconds, not minutes.
 
 :func:`load_module` builds ``csrc/<name>.cu`` with ``csrc/<name>_module.cpp``,
@@ -30,7 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ['find_nvcc', 'load', 'load_module', 'stream_getter', 'BUILD_LOG']
+__all__ = ['find_nvcc', 'build_key', 'load', 'load_module', 'stream_getter',
+           'BUILD_LOG']
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'kaolin_tpu_torch'
@@ -76,14 +78,24 @@ def _module_flags():
              '-ltorch_python'))
 
 
+def build_key(sources, flags, libs=(), csrc=CSRC):
+    """The 16 hex digits that name a build: a hash of the ``sources`` (in
+    ``csrc``), of every header ``csrc/*.cuh`` (by name and bytes, so an
+    edit to a header alone builds anew) and of the flags and libraries."""
+    h = hashlib.sha256()
+    for path in [csrc / s for s in sources] + sorted(csrc.glob('*.cuh')):
+        h.update(path.name.encode() + b'\0' + path.read_bytes() + b'\0')
+    h.update(' '.join(tuple(flags) + tuple(libs)).encode())
+    return h.hexdigest()[:16]
+
+
 def _build(name, sources, flags, libs=()):
-    """``build/kaolin_tpu_torch/lib<name>_<hash>.so`` from ``sources`` (in
+    """``build/kaolin_tpu_torch/lib<name>_<key>.so`` from ``sources`` (in
     ``csrc/``) by one nvcc call with ``flags`` (``libs`` after the sources,
-    where the linker looks for them), unless already built."""
+    where the linker looks for them), unless already built
+    (:func:`build_key`)."""
     srcs = [CSRC / s for s in sources]
-    key = (b''.join(s.read_bytes() for s in srcs)
-           + ' '.join(flags + libs).encode())
-    out = BUILD_DIR / f'lib{name}_{hashlib.sha256(key).hexdigest()[:16]}.so'
+    out = BUILD_DIR / f'lib{name}_{build_key(sources, flags, libs)}.so'
     if out.exists():
         return out
     nvcc = find_nvcc()

@@ -5,8 +5,9 @@
 // The TPU probes asked what Mosaic could compile for K3 (loops with a bound
 // read at run time, DMAs of table rows into scratch, lane and row rolls)
 // and what one grid step costs.  Here the same functions answer what each
-// costs on the card: the row copies of K3's cell staging, single and
-// double buffered, and the cost of one CTA.  Built by
+// costs on the card: the row copies of K3's cell staging, through shared
+// memory by the copy engine (kB) or straight into registers (kC, kD), and
+// an elementwise pipeline through shared memory (P2).  Built by
 // kaolin_tpu_torch/_cuda.py (nvcc -gencode arch=compute_90a,code=sm_90a
 // -O3 -fmad=false) with probes_module.cpp, the Python entry points that
 // kaolin_tpu_torch/probes/_kernels.py (which holds the plain PyTorch
@@ -17,13 +18,19 @@
 // Every function here moves a few bytes per operation, so each is bound by
 // device memory (or, at the probes' small shapes, by launch latency);
 // -fmad=false and sums in the probes' order make each kernel equal to its
-// plain version bit for bit.  kB, kC, kE..kH and P2 keep one CTA per block
-// b of the probe's grid (the TPU's grid step), 256 threads.  kA and kD are
-// shaped for the card instead: kA runs one thread per float4 over a grid
-// that fills the SMs, kD a CTA per (bag, 64 float4 columns) with every row
-// of a short bag loaded before its first add.
+// plain version bit for bit.  kE..kH keep one CTA per block b of the
+// probe's grid (the TPU's grid step), 256 threads.  The others are shaped
+// for the card: kA runs one thread per float4 over a grid that fills the
+// SMs; kB a CTA per bag whose rows the copy engine (TMA, csrc/tma.cuh)
+// streams through a ring of shared-memory slots; kC and kD a CTA per (bag,
+// 64 float4 columns) with rows loaded into registers in batches; P2 a CTA
+// per 4 KB tile, a bulk load and a bulk store through shared memory.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -70,81 +77,90 @@ dyn_loop_kernel(const int* __restrict__ nbs, int nbs_stride,
   }
 }
 
-__device__ __forceinline__ void copy16(float4* dst, const float4* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
+// kB: out[b] = sum over j < ck of table row ids[b, j] (rows of n floats,
+// n % 4 == 0), summed in j order from 0: the TPU's double-buffered
+// make_async_copy of table rows as a ring of KB_SLOTS row slots in shared
+// memory, filled by the copy engine.  A CTA takes one bag: warp 0 is the
+// producer, the other warps the consumers, one float4 of a row a thread
+// (rows of up to MAXV x THREADS float4s loop).  Each slot has a `full`
+// barrier (one arrival plus the row's bytes) and an `empty` barrier (one
+// arrival per consumer warp).  The producer's lane 0 takes the bag's row
+// ids from the warp's registers (32 loaded at once), waits until slot j %
+// KB_SLOTS is empty, arms its full barrier with the row's bytes and issues
+// one bulk copy of the row; the consumers wait on full[j % KB_SLOTS] with
+// the parity of the slot's use, add the row and release the slot.  At K3's
+// staging shape (rows of 3 KB) nine CTAs fit an SM, 216 KB of rows in
+// flight.  The row reads are what bound it: a bag of CK rows reads CK rows
+// from L2 or device memory, a table row once per bag that names it.
+constexpr int KB_SLOTS = 8;
+constexpr int KB_BARRIERS = 128;        // bytes before the slots: 2 x 8 barriers
 
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// kB, kC: out[b] = sum over j < ck of table row ids[b, j] (rows of n
-// floats, n % 4 == 0), summed in j order from 0.  Each row is copied into
-// shared memory with cp.async (16 bytes a thread) and added from there:
-// SLOTS == 2 (kB) copies row j + 1 into the other slot while row j is added;
-// SLOTS == 1 (kC) waits for each copy.  A thread adds only the float4s it
-// copied itself, so the copies need waits but no barrier.
-template <int SLOTS>
-__global__ void __launch_bounds__(THREADS)
-row_sum_kernel(const int* __restrict__ ids, int ck,
-               const float4* __restrict__ table, float4* __restrict__ out,
-               int n4) {
-  extern __shared__ float4 slot[];     // (SLOTS, n4)
+__global__ void __launch_bounds__(32 + THREADS)
+row_ring_kernel(const int* __restrict__ ids, int ck,
+                const float4* __restrict__ table, float4* __restrict__ out,
+                int n4) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring);
+  uint64_t* empty = full + KB_SLOTS;
+  float4* slot = reinterpret_cast<float4*>(ring + KB_BARRIERS);
+  const int consumers = blockDim.x - 32;           // a multiple of 32
+  const int lane = threadIdx.x & 31;
   const int b = blockIdx.x;
-  const int* row_ids = ids + (size_t)b * ck;
+  const uint32_t bytes = (uint32_t)n4 * sizeof(float4);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KB_SLOTS; ++s) {
+      tma::barrier_init(&full[s], 1);
+      tma::barrier_init(&empty[s], consumers / 32);
+    }
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {                          // the producer warp
+    const int* row_ids = ids + (size_t)b * ck;
+    for (int j0 = 0; j0 < ck; j0 += 32) {
+      const int mine = j0 + lane < ck ? __ldg(row_ids + j0 + lane) : 0;
+      const int cnt = min(32, ck - j0);
+      for (int u = 0; u < cnt; ++u) {
+        const int id = __shfl_sync(0xffffffffu, mine, u);
+        if (lane == 0) {
+          const int j = j0 + u, s = j % KB_SLOTS;
+          if (j >= KB_SLOTS) tma::wait(&empty[s], (j / KB_SLOTS - 1) & 1);
+          tma::arrive_expect_tx(&full[s], bytes);
+          tma::load(slot + (size_t)s * n4, table + (size_t)id * n4, bytes,
+                    &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x - 32;
   float4 acc[MAXV];
 #pragma unroll
   for (int v = 0; v < MAXV; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  auto issue = [&](int j, int s) {
-    const float4* src = table + (size_t)row_ids[j] * n4;
-#pragma unroll
-    for (int v = 0; v < MAXV; ++v) {
-      const int i = threadIdx.x + v * THREADS;
-      if (i < n4) copy16(slot + s * n4 + i, src + i);
-    }
-    commit();
-  };
-
-  if (SLOTS == 2) issue(0, 0);
   for (int j = 0; j < ck; ++j) {
-    const int s = SLOTS == 2 ? (j & 1) : 0;
-    if (SLOTS == 2) {
-      if (j + 1 < ck) {
-        issue(j + 1, s ^ 1);
-        wait_groups<1>();              // row j is in, row j + 1 in flight
-      } else {
-        wait_groups<0>();
-      }
-    } else {
-      issue(j, 0);
-      wait_groups<0>();
-    }
+    const int s = j % KB_SLOTS;
+    tma::wait(&full[s], (j / KB_SLOTS) & 1);
+    const float4* row = slot + (size_t)s * n4;
 #pragma unroll
     for (int v = 0; v < MAXV; ++v) {
-      const int i = threadIdx.x + v * THREADS;
-      if (i < n4) {
-        const float4 r = slot[s * n4 + i];
-        acc[v].x += r.x; acc[v].y += r.y; acc[v].z += r.z; acc[v].w += r.w;
-      }
+      const int i = t + v * consumers;
+      if (i < n4) add4(acc[v], row[i]);
     }
+    __syncwarp();
+    if (lane == 0) tma::arrive(&empty[s]);
   }
 #pragma unroll
   for (int v = 0; v < MAXV; ++v) {
-    const int i = threadIdx.x + v * THREADS;
+    const int i = t + v * consumers;
     if (i < n4) out[(size_t)b * n4 + i] = acc[v];
   }
 }
 
 // kD: out[b] = sum over j < count of table row ids[b, j], count =
-// nbs[b * nbs_stride] clamped to [0, ck], summed in j order from 0.  A CTA
+// nbs[b * nbs_stride] clamped to [0, ck] (kC: nbs null, count = ck), summed
+// in j order from 0.  A CTA
 // takes one bag b and KD_COLS float4 columns of its rows (grid (nb,
 // ceil(n4 / KD_COLS))), one column a thread, so the script's 64 bags of 256
 // float4s make 256 CTAs and K3's staging shape (4,452 bags of 192) 13,356.
@@ -176,7 +192,8 @@ bag_sum_kernel(const int* __restrict__ ids, int ck,
   const int b = blockIdx.x;
   const int i = blockIdx.y * KD_COLS + threadIdx.x;
   if (i >= n4) return;
-  const int count = min(max(__ldg(nbs + (size_t)b * nbs_stride), 0), ck);
+  const int count =
+      nbs ? min(max(__ldg(nbs + (size_t)b * nbs_stride), 0), ck) : ck;
   const int* row_ids = ids + (size_t)b * ck;
   const float4* col = table + i;
   float4 cur[KD_BATCH], nxt[KD_BATCH];
@@ -224,20 +241,57 @@ shift_kernel(const float* __restrict__ x, float* __restrict__ out, int R,
   }
 }
 
-// P2: o = 2 x, one CTA per grid step of n4 float4s: per-CTA cost.
+// P2: o = 2 x over total4 float4s, the TPU's per-step pipeline (a DMA of
+// the step in, the multiply, a DMA out) on the copy engine.  One CTA per
+// tile of P2_TILE4 float4s (4 KB: one (8, 128) step of the probe; the last
+// tile may be part of one): thread 0 arms the tile's barrier with its bytes
+// and issues one bulk load into shared memory; the 256 threads wait on the
+// barrier, double their float4 in place, fence the writes for the copy
+// engine and meet at __syncthreads(); thread 0 writes the tile back with
+// one bulk store and waits until it is done.  The CTAs an
+// SM holds (eight) are the pipeline's stages, and the block scheduler
+// starts them in tile order, so the tiles in flight lie side by side in
+// device memory.  Persistent CTAs that walk the tiles through a ring of 2-4
+// slots, bulk loads with register stores, and 16-byte streaming loads and
+// stores on the persistent grid were each 4-6 % slower on the H100 (PERF.md
+// §6).  Bound by device memory: each float4 read once, written once.
+constexpr int P2_TILE4 = THREADS;
+
 __global__ void __launch_bounds__(THREADS)
-dummy_kernel(const float4* __restrict__ x, float4* __restrict__ o, int n4) {
-  const size_t base = (size_t)blockIdx.x * n4;
-  for (int i = threadIdx.x; i < n4; i += THREADS) {
-    float4 v = x[base + i];
+dummy_kernel(const float4* __restrict__ x, float4* __restrict__ o,
+             unsigned total4) {
+  __shared__ __align__(128) float4 tile[P2_TILE4];
+  __shared__ __align__(8) uint64_t full;
+  const size_t base = (size_t)blockIdx.x * P2_TILE4;
+  const unsigned n = min((unsigned)P2_TILE4, total4 - (unsigned)base);
+  const uint32_t bytes = n * (uint32_t)sizeof(float4);
+  if (threadIdx.x == 0) {
+    tma::barrier_init(&full, 1);
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma::arrive_expect_tx(&full, bytes);
+    tma::load(tile, x + base, bytes, &full);
+  }
+  tma::wait(&full, 0);
+  if (threadIdx.x < n) {
+    float4 v = tile[threadIdx.x];
     v.x *= 2.f; v.y *= 2.f; v.z *= 2.f; v.w *= 2.f;
-    o[base + i] = v;
+    tile[threadIdx.x] = v;
+  }
+  tma::fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma::store(o + base, tile, bytes);
+    tma::commit();
+    tma::wait_store<0>();
   }
 }
 
 // Set once per process: kA's grid (every SM full of its CTAs) and the
-// shared memory kB and kC may take (the card's opt-in limit, so no launch
-// needs cudaFuncSetAttribute).  Queried on the current device.
+// shared memory kB may take (the card's opt-in limit, so no launch needs
+// cudaFuncSetAttribute).  Queried on the current device.
 struct Setup {
   cudaError_t err = cudaSuccess;
   unsigned ka_grid = 0;
@@ -257,10 +311,7 @@ const Setup& setup() {
              &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
             cudaSuccess ||
         (r.err = cudaFuncSetAttribute(
-             row_sum_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             optin)) != cudaSuccess ||
-        (r.err = cudaFuncSetAttribute(
-             row_sum_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             row_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
              optin)) != cudaSuccess)
       return r;
     r.ka_grid = (unsigned)(sms * (per_sm > 0 ? per_sm : 1));
@@ -290,19 +341,19 @@ extern "C" int probe_dyn_loop(const void* nbs, int nbs_stride, const void* x,
 }
 
 extern "C" int probe_row_sum(const void* ids, int ck, const void* table,
-                             void* out, int nb, int n, int slots,
-                             void* stream) {
+                             void* out, int nb, int n, void* stream) {
   if (nb < 0 || (nb > 0 && (n < 4 || n % 4 != 0)) ||
-      n / 4 > MAXV * THREADS || ck < 1 || (slots != 1 && slots != 2))
+      n / 4 > MAXV * THREADS || ck < 1)
     return (int)cudaErrorInvalidValue;
   const Setup& s = setup();
   if (s.err != cudaSuccess) return (int)s.err;
   const int n4 = n / 4;
-  const size_t smem = sizeof(float4) * (size_t)slots * n4;
+  const int warps = (n4 + 31) / 32;
+  const int consumers = warps * 32 < THREADS ? warps * 32 : THREADS;
+  const size_t smem = KB_BARRIERS + sizeof(float4) * (size_t)KB_SLOTS * n4;
   if (smem > s.row_sum_smem) return (int)cudaErrorInvalidValue;
-  auto kernel = slots == 2 ? row_sum_kernel<2> : row_sum_kernel<1>;
   if (nb > 0)
-    kernel<<<nb, THREADS, smem, (cudaStream_t)stream>>>(
+    row_ring_kernel<<<nb, 32 + consumers, smem, (cudaStream_t)stream>>>(
         (const int*)ids, ck, (const float4*)table, (float4*)out, n4);
   return (int)cudaGetLastError();
 }
@@ -336,11 +387,13 @@ extern "C" int probe_shift(const void* x, void* out, int nb, int R, int C,
 
 extern "C" int probe_dummy(const void* x, void* out, int nsteps, int n,
                            void* stream) {
-  if (nsteps < 0 || (nsteps > 0 && (n < 4 || n % 4 != 0)))
+  if (nsteps < 0 || (nsteps > 0 && (n < 4 || n % 4 != 0)) ||
+      (unsigned long long)nsteps * (n / 4) >= (1ull << 31))
     return (int)cudaErrorInvalidValue;
-  if (nsteps > 0)
-    dummy_kernel<<<nsteps, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float4*)x, (float4*)out, n / 4);
+  const unsigned total4 = (unsigned)nsteps * (n / 4);
+  if (total4 > 0)
+    dummy_kernel<<<(total4 + P2_TILE4 - 1) / P2_TILE4, THREADS, 0,
+                   (cudaStream_t)stream>>>((const float4*)x, (float4*)out,
+                                           total4);
   return (int)cudaGetLastError();
 }
-

@@ -29,7 +29,7 @@ extern "C" {
 int probe_dyn_loop(const void* nbs, int nbs_stride, const void* x, void* out,
                    int nb, int n, void* stream);
 int probe_row_sum(const void* ids, int ck, const void* table, void* out,
-                  int nb, int n, int slots, void* stream);
+                  int nb, int n, void* stream);
 int probe_bag_sum(const void* ids, int ck, const void* nbs, int nbs_stride,
                   const void* table, void* out, int nb, int n, void* stream);
 int probe_shift(const void* x, void* out, int nb, int R, int C, int op, int s,
@@ -131,13 +131,11 @@ bool rows_ok(const at::Tensor& ids, const at::Tensor& table,
          table.sizes().slice(1) == x.sizes().slice(1) && row(x) % 4 == 0;
 }
 
-// row_sum(ids, table, x, slots, stream): kB (slots 2), kC (slots 1).
+// row_sum(ids, table, x, stream): kB, every row through the TMA ring.
 PyObject* py_row_sum(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
-  int slots;
   void* stream;
-  if (!args_ok(nargs, 5, "row_sum") || !int_arg(args, 3, &slots) ||
-      !stream_arg(args, 4, &stream))
+  if (!args_ok(nargs, 4, "row_sum") || !stream_arg(args, 3, &stream))
     return nullptr;
   const at::Tensor* ids = tensor(args, 0);
   const at::Tensor* table = tensor(args, 1);
@@ -147,29 +145,31 @@ PyObject* py_row_sum(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   at::Tensor out = at::empty(x->sizes(), table->options());
   return launched(probe_row_sum(ids->data_ptr(), (int)ids->size(2),
                                 table->data_ptr(), out.data_ptr(),
-                                (int)x->size(0), row(*x), slots, stream),
+                                (int)x->size(0), row(*x), stream),
                   "row_sum", std::move(out));
   END_HANDLE_TH_ERRORS
 }
 
-// bag_sum(nbs, ids, table, x, stream): kD, the first nbs[b, 0] rows.
+// bag_sum(nbs, ids, table, x, stream): kD, the first nbs[b, 0] rows; kC
+// with nbs None, all CK rows.
 PyObject* py_bag_sum(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   void* stream;
   if (!args_ok(nargs, 5, "bag_sum") || !stream_arg(args, 4, &stream))
     return nullptr;
-  const at::Tensor* nbs = tensor(args, 0);
+  const at::Tensor* nbs = args[0] == Py_None ? nullptr : tensor(args, 0);
   const at::Tensor* ids = tensor(args, 1);
   const at::Tensor* table = tensor(args, 2);
   const at::Tensor* x = tensor(args, 3);
-  if (!nbs || !ids || !table || !x) return nullptr;
+  if ((!nbs && args[0] != Py_None) || !ids || !table || !x) return nullptr;
   if (!rows_ok(*ids, *table, *x) ||
-      !ok(*nbs, at::kInt, 2, x->get_device()) ||
-      nbs->size(0) != x->size(0) || nbs->size(1) < 1)
+      (nbs && (!ok(*nbs, at::kInt, 2, x->get_device()) ||
+               nbs->size(0) != x->size(0) || nbs->size(1) < 1)))
     Py_RETURN_NONE;
   at::Tensor out = at::empty(x->sizes(), table->options());
   return launched(probe_bag_sum(ids->data_ptr(), (int)ids->size(2),
-                                nbs->data_ptr(), (int)nbs->size(1),
+                                nbs ? nbs->data_ptr() : nullptr,
+                                nbs ? (int)nbs->size(1) : 0,
                                 table->data_ptr(), out.data_ptr(),
                                 (int)x->size(0), row(*x), stream),
                   "bag_sum", std::move(out));
@@ -195,7 +195,7 @@ PyObject* py_shift(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   END_HANDLE_TH_ERRORS
 }
 
-// dummy(x, stream): P2, 2 x, one CTA per step x[b].
+// dummy(x, stream): P2, 2 x, x[b] a multiple of 4 floats.
 PyObject* py_dummy(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   void* stream;
@@ -216,9 +216,9 @@ PyMethodDef kMethods[] = {
     {"dyn_loop", (PyCFunction)(void (*)(void))py_dyn_loop, METH_FASTCALL,
      "dyn_loop(nbs, x, stream) -> out or None (kA)"},
     {"row_sum", (PyCFunction)(void (*)(void))py_row_sum, METH_FASTCALL,
-     "row_sum(ids, table, x, slots, stream) -> out or None (kB, kC)"},
+     "row_sum(ids, table, x, stream) -> out or None (kB)"},
     {"bag_sum", (PyCFunction)(void (*)(void))py_bag_sum, METH_FASTCALL,
-     "bag_sum(nbs, ids, table, x, stream) -> out or None (kD)"},
+     "bag_sum(nbs or None, ids, table, x, stream) -> out or None (kD, kC)"},
     {"shift", (PyCFunction)(void (*)(void))py_shift, METH_FASTCALL,
      "shift(x, op, s, stream) -> out or None (kE..kH)"},
     {"dummy", (PyCFunction)(void (*)(void))py_dummy, METH_FASTCALL,

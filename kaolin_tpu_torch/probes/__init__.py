@@ -6,22 +6,27 @@ coherent trace costs, and what one grid step costs.  Each module here asks
 the same of the CUDA port, with the scripts' names and inputs:
 
 * :mod:`.mosaic3` (``probe_r5_mosaic3.py``, P1): kernels kA..kH, loops with
-  a bound read at run time, table rows staged in shared memory single and
-  double buffered (also at K3's staging shape), lane and row shifts;
-* :mod:`.stages` (``probe_r5_stages.py``, P2): the per-CTA cost of a
-  trivial grid, and the coherent trace of the SPC cell by stage (culling
-  candidates, block order, input gathers, the whole trace, output fills);
+  a bound read at run time, table rows staged in shared memory by the copy
+  engine or loaded into registers (also at K3's staging shape), lane and
+  row shifts;
+* :mod:`.stages` (``probe_r5_stages.py``, P2): an elementwise kernel over
+  (8, 128) steps beside ``torch.mul``, and the coherent trace of the SPC
+  cell by stage (culling candidates, block order, input gathers, the whole
+  trace, output fills);
 * :mod:`.kbisect` (``probe_r5_kbisect.py``, P3): K3 cut at six stages
   (:func:`~kaolin_tpu_torch.render.spc._trace.trace_staged`), on the
   script's inputs, a scene with hits and the SPC cell.
 
 :mod:`.k1_clocks` has no TPU counterpart: it reads the per-CTA clocks of
 the forward kernel K1 at the DIB-R cell from an instrumented copy of its
-source, on the card only.
+source, on the card only.  :mod:`.p2_designs` times the designs of P2
+that the port weighed against its kernel and ``torch.mul``, on the card
+only.
 
 Each has ``run(device)``: it checks every kernel against its plain version
 and, on CUDA, returns device times (CUDA events, mean after warm-up; P1's
-also without the host, from a CUDA graph) with each function's bound, from :mod:`kaolin_tpu_torch.utils.measure` as
+and P2's also without the host, from a CUDA graph) with each function's
+bound, from :mod:`kaolin_tpu_torch.utils.measure` as
 ``chip_smoke.py`` takes them.  On the CPU it runs the plain versions at a
 small size and times nothing.  ``python -m kaolin_tpu_torch.probes.<name>``
 runs it on the card and prints one JSON object.

@@ -4,7 +4,7 @@ versions.
 Ports of the Pallas TPU probes ``scripts/probe_r5_mosaic3.py::kA..kH`` and
 ``scripts/probe_r5_stages.py::dummy_kernel``; the CUDA kernels are in
 ``csrc/probes.cu``.  Layouts follow the scripts: ``x`` is (NB, R, C)
-float32 (one CTA per b), ``nbs`` is (NB, 2) int32 of which column 0 is
+float32 (NB grid steps), ``nbs`` is (NB, 2) int32 of which column 0 is
 read, ``ids`` is (NB, 1, CK) int32 rows of ``table`` (M, R, C) float32.
 
 CPU tensors run the plain PyTorch versions (``PLAIN``); CUDA tensors
@@ -17,12 +17,25 @@ run in the scripts' order.
 import torch
 
 __all__ = ['kA', 'kB', 'kC', 'kD', 'kE', 'kF', 'kG', 'kH', 'dummy',
-           'LAUNCHES', 'PLAIN']
+           'LAUNCHES', 'PLAIN', 'KB_SLOTS', 'P2_TILE_BYTES',
+           'kb_smem_bytes']
 
 LAUNCHES = {k: 0 for k in ('kA', 'kB', 'kC', 'kD', 'kE', 'kF', 'kG', 'kH',
                            'dummy')}
 
 ROLL_LANES, SHIFT_LANES, ROLL_ROWS = 0, 1, 2     # probe_shift's ops
+# kB's ring in csrc/probes.cu (KB_SLOTS row slots after KB_BARRIERS bytes of
+# barriers) and P2's tile (P2_TILE_BYTES a CTA); a CPU test holds these in
+# step with the source
+KB_SLOTS = 8
+KB_BARRIERS = 128
+P2_TILE_BYTES = 4096
+
+
+def kb_smem_bytes(row_floats):
+    """Dynamic shared memory of one kB CTA: its barriers and KB_SLOTS row
+    slots of ``row_floats`` float32."""
+    return KB_BARRIERS + KB_SLOTS * 4 * row_floats
 _SHIFTS = {'kE': (ROLL_LANES, 3), 'kF': (ROLL_LANES, 3),
            'kG': (SHIFT_LANES, 4), 'kH': (ROLL_ROWS, 1)}
 
@@ -68,7 +81,10 @@ def _dummy_torch(x):
 PLAIN = {
     'kA': _kA_torch,
     'kB': lambda ids, table, x: _row_sum_torch(ids, table),
-    'kC': lambda ids, table, x: _row_sum_torch(ids, table),
+    # kC runs on kD's kernel with every count CK: kD's plain version so
+    'kC': lambda ids, table, x: _row_sum_torch(
+        ids, table, torch.full((ids.shape[0],), ids.shape[2],
+                               dtype=torch.int32, device=ids.device)),
     'kD': lambda nbs, ids, table, x: _row_sum_torch(ids, table, nbs[:, 0]),
     'kE': lambda x: _shift_torch(x, *_SHIFTS['kE']),
     'kF': lambda x: _shift_torch(x, *_SHIFTS['kF']),
@@ -139,13 +155,15 @@ def _reject(name, x, tensors, nbs=None):
                                for label, t, *_ in tensors if label != 'x'))
 
 
-def _row_sum(name, ids, table, x, nbs=None, slots=1):
+def _row_sum(name, ids, table, x, nbs=None):
+    """kB through the TMA ring (``row_sum``); kC (``nbs`` None: every count
+    CK) and kD through kD's kernel (``bag_sum``)."""
     if not x.is_cuda:
-        return (_plain(name, x, ids, table, x) if nbs is None
-                else _plain(name, x, nbs, ids, table, x))
+        return (_plain(name, x, nbs, ids, table, x) if name == 'kD'
+                else _plain(name, x, ids, table, x))
     ext = _ext or _bind()
     stream = _stream(x.get_device())
-    out = (ext.row_sum(ids, table, x, slots, stream) if nbs is None
+    out = (ext.row_sum(ids, table, x, stream) if name == 'kB'
            else ext.bag_sum(nbs, ids, table, x, stream))
     if out is None:
         _reject(name, x, (('ids', ids, _I32, 3), ('table', table, _F32, None))
@@ -167,12 +185,14 @@ def kA(nbs, x):
 
 
 def kB(ids, table, x):
-    """sum over j < CK of table[ids[b, 0, j]]; rows double-buffered."""
-    return _row_sum('kB', ids, table, x, slots=2)
+    """sum over j < CK of table[ids[b, 0, j]]; rows staged in shared memory
+    by the copy engine, KB_SLOTS in flight per bag."""
+    return _row_sum('kB', ids, table, x)
 
 
 def kC(ids, table, x):
-    """The same sum, one row buffer."""
+    """The same sum, rows loaded straight into registers (kD's kernel with
+    every count CK)."""
     return _row_sum('kC', ids, table, x)
 
 
@@ -214,7 +234,8 @@ def kH(x):
 
 
 def dummy(x):
-    """P2: 2 x, one CTA per step of x (nsteps, ...)."""
+    """P2: 2 x over the steps of x (nsteps, ...), a CTA per 4 KB tile, in
+    and out of shared memory by the copy engine."""
     if not x.is_cuda:
         return _plain('dummy', x, x)
     out = (_ext or _bind()).dummy(x, _stream(x.get_device()))

@@ -5,14 +5,17 @@ bound is read at run time (kA), table rows copied into scratch by DMA in a
 loop, double buffered (kB) or not (kC, kD with a run-time bound), and lane
 and row rolls (kE..kH).  On the card each is a CUDA kernel
 (``csrc/probes.cu``, wrappers in :mod:`._kernels`), and the question is
-what each costs; kB against kC at K3's staging shape (one row of 4 x 192
-cell values per candidate cell, 61 cells for each of 4,452 blocks) is the
-gain of a double-buffered row copy where K3 stages its cell rows.  kA is
-also timed at a large shape (P2's grid), where its bound lies above the
-launch latency.  Every time comes twice: ``ms``, per call as a Python
-caller pays it, and ``device_ms``, the device's time without the host (a
-CUDA graph's replay); a library call that computes the same function is
-timed both ways beside it.
+what each costs.  kB stages each row in shared memory by the copy engine
+(a ring of ``KB_SLOTS`` slots, TMA bulk copies and mbarriers); kC loads
+the same rows straight into registers (kD's kernel with every count CK).
+At K3's staging shape (one row of 4 x 192 cell values per candidate cell,
+61 cells for each of 4,452 blocks) kB against kC says whether staging
+rows through shared memory pays, for rows each thread reads once.  kA and
+kE..kH are also timed at a large shape (P2's grid), where their bound lies
+above the launch latency.  Every time comes twice: ``ms``, per call as a
+Python caller pays it, and ``device_ms``, the device's time without the
+host (a CUDA graph's replay); a library call that computes the same
+function is timed both ways beside it, in turns with the kernel.
 
 Run on the card: ``python -m kaolin_tpu_torch.probes.mosaic3``.
 """
@@ -26,21 +29,23 @@ import torch.nn.functional as F
 
 from kaolin_tpu_torch.probes import (_kernels, main, max_abs_err, same_bits,
                                      seeded)
-from kaolin_tpu_torch.utils.measure import (bound_ms, device_ms, replayed,
-                                            time_ms)
+from kaolin_tpu_torch.utils.measure import (bound_ms, device_ms, in_turns,
+                                            replayed, time_ms)
 
-__all__ = ['NB', 'R', 'C', 'M', 'CK', 'KERNELS', 'LARGE_NB', 'inputs',
-           'large_inputs', 'call', 'check', 'check_captured', 'measure',
-           'host_us', 'run']
+__all__ = ['NB', 'R', 'C', 'M', 'CK', 'KERNELS', 'SHIFTS', 'LARGE',
+           'LARGE_NB', 'inputs', 'large_inputs', 'call', 'check',
+           'check_captured', 'shift_work', 'measure', 'host_us', 'run']
 
 NB, R, C, M, CK = 64, 8, 128, 256, 8       # the script's shapes
 KERNELS = ('kA', 'kB', 'kC', 'kD', 'kE', 'kF', 'kG', 'kH')
 ROW_SUMS = ('kB', 'kC', 'kD')
+SHIFTS = ('kE', 'kF', 'kG', 'kH')
+LARGE = ('kA',) + SHIFTS        # timed at the large shape too
 # K3's staging shape on the SPC cell: active blocks, the most candidate
 # cells of a block, one cell row (x, y, z, pid) x cell width
 STAGING = dict(nb=4452, ck=61, rows=(4, 192))
-# kA's large shape: P2's 65,536 blocks of (R, C) float32, where the bound
-# (~0.16 ms, bytes) lies above the launch latency
+# the large shape of kA and kE..kH: P2's 65,536 blocks of (R, C) float32,
+# where the bound (~0.16 ms, bytes) lies above the launch latency
 LARGE_NB = 65536
 ITERS, PLAIN_ITERS = 50, 5      # timed calls of a kernel, a plain version
 LARGE_ITERS = 20
@@ -90,6 +95,14 @@ def check(inp, names=KERNELS):
     return errs
 
 
+def shift_work(nb, rows):
+    """(bytes, float32 operations) of ``x + shift(x)`` (kE..kH; also kA's
+    output and P2's) over ``nb`` blocks of ``rows`` float32: x read once,
+    the output written once, one add an element."""
+    n = nb * int(np.prod(rows))
+    return 4 * 2 * n, n
+
+
 def _work(name, inp):
     """(bytes, float32 operations) the function needs on these inputs:
     each input it reads once (each distinct table row once), each output
@@ -109,7 +122,7 @@ def _work(name, inp):
         return 4 * (rows * n + ids.numel() + nb * n), adds
     if name == 'kA':
         return 4 * (2 * nb * n + nb), int(nbs[:, 0].sum()) * n
-    return 4 * 2 * nb * n, nb * n
+    return shift_work(nb, x.shape[1:])
 
 
 def _library(name, inp):
@@ -132,16 +145,6 @@ def _library(name, inp):
     return None
 
 
-def _in_turns(timer, kernel, lib, iters):
-    """(kernel ms, library ms or None) by ``timer``, taken in turns
-    (kernel, library, library, kernel) and averaged, so a drift of the
-    card or the host falls on both alike."""
-    if lib is None:
-        return timer(kernel, iters), None
-    k0, l0, l1, k1 = (timer(f, iters) for f in (kernel, lib, lib, kernel))
-    return (k0 + k1) / 2, (l0 + l1) / 2
-
-
 def measure(inp, names, iters=ITERS):
     """Times of the kernels in ``names`` on ``inp`` beside their plain
     versions, one library call where there is one, and the bound.  Each
@@ -157,9 +160,9 @@ def measure(inp, names, iters=ITERS):
         lib = _library(name, inp)
         nbytes, flops = _work(name, inp)
         bound, by = bound_ms(nbytes, flops)
-        ms, lib_ms = _in_turns(time_ms, lambda: kernel(*args), lib, iters)
-        dev_ms, lib_dev_ms = _in_turns(device_ms, lambda: kernel(*args), lib,
-                                       iters)
+        ms, lib_ms = in_turns(time_ms, lambda: kernel(*args), lib, iters)
+        dev_ms, lib_dev_ms = in_turns(device_ms, lambda: kernel(*args), lib,
+                                      iters)
         out[name] = dict(
             ms=ms, device_ms=dev_ms,
             plain_ms=time_ms(lambda: plain(*args), PLAIN_ITERS),
@@ -215,7 +218,7 @@ def host_us(inp, calls=HOST_CALLS):
 
 
 def large_inputs(device):
-    """kA's large shape: P2's grid of LARGE_NB blocks of (R, C) float32,
+    """The large shape: P2's grid of LARGE_NB blocks of (R, C) float32,
     ``x`` from numpy seed 2, ``nbs`` from ``default_rng(1)`` in 1..CK (as
     :func:`inputs` draws them)."""
     return dict(inputs(device, LARGE_NB),
@@ -238,14 +241,15 @@ def run(device='cuda', table_rows=None):
     """Check kA..kH against their plain versions on the script's inputs and
     on a random ``x`` (numpy seed 2), bit for bit; with ``table_rows`` (the
     cell table's row count) also kB, kC, kD at K3's staging shape.  On CUDA
-    also kA at its large shape (:func:`large_inputs`), each kernel's
-    captured launch against its eager one, and the times
-    (:func:`measure`) at the script's shape, kA's large shape and the
-    staging shape, and the host's share of a launch (:func:`host_us`).
+    also kA and kE..kH at the large shape (:func:`large_inputs`), each
+    kernel's captured launch against its eager one (kB, kC, kD at the
+    staging shape too), and the times (:func:`measure`) at the script's
+    shape, the large shape and the staging shape, and the host's share of
+    a launch (:func:`host_us`).
 
     Returns dict(max_abs_err={name: x}, script={name: times},
-    staging={name: times} or None, large={'kA': times}, host_us={part:
-    us}); no times on the CPU.
+    staging={name: times} or None, large={name: times} (kA, kE..kH),
+    host_us={part: us}); no times on the CPU.
     """
     device = torch.device(device)
     script = inputs(device)
@@ -267,11 +271,13 @@ def run(device='cuda', table_rows=None):
     if device.type != 'cuda':
         return res
     large = large_inputs(device)
-    fold(check(large, ('kA',)))
+    fold(check(large, LARGE))
     check_captured(noisy)
+    if staging is not None:
+        check_captured(staging, ROW_SUMS)
     res['host_us'] = host_us(script)
     res['script'] = measure(script, KERNELS)
-    res['large'] = measure(large, ('kA',), LARGE_ITERS)
+    res['large'] = measure(large, LARGE, LARGE_ITERS)
     if staging is not None:
         res['staging'] = measure(staging, ROW_SUMS)
     return res

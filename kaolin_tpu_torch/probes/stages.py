@@ -20,28 +20,37 @@ trivial Pallas kernel (``dummy_kernel``, P2).  Here:
 
 all on the SPC cell of ``chip_smoke.py`` (uv_sphere(100, 51) at radius
 0.45, level 10, 1024^2 rays, rt 32, knum 256, the bench's segments), and
-the dummy kernel (``o = 2 x``, one CTA per (8, 128) step) at 65,536 and
-262,144 steps: ns per CTA, beside ``torch.mul``.
+the dummy kernel (``o = 2 x``, a CTA per (8, 128) step, in and out of
+shared memory by the copy engine) at 65,536 and 262,144 steps, in turns
+with ``torch.mul(x, 2.)`` and by both timers: ``ms`` per call as Python
+pays it and ``device_ms`` on the device alone (a CUDA graph's replay),
+with ns per step and the bound.
 
 Run on the card: ``python -m kaolin_tpu_torch.probes.stages``.
 """
 
 import torch
 
-from kaolin_tpu_torch.probes import (_kernels, main, max_abs_err, same_bits,
-                                     seeded, spc_cell)
+from kaolin_tpu_torch.probes import (_kernels, main, max_abs_err, mosaic3,
+                                     same_bits, seeded, spc_cell)
 from kaolin_tpu_torch.render.spc import _trace
 from kaolin_tpu_torch.render.spc.raster import (
     CoherentHits, _cull_candidates, _cull_settings, _gather_inputs,
     _order_blocks, _pad_rays, _trace_cells, trace_inputs,
     unbatched_raytrace_coherent)
-from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
+from kaolin_tpu_torch.utils.measure import (TRACE, bound_ms, device_ms,
+                                            in_turns, time_ms)
 
-__all__ = ['NSTEPS', 'STEP', 'dummy_inputs', 'trace_offset_after', 'run']
+__all__ = ['NSTEPS', 'STEP', 'dummy_inputs', 'dummy_work', 'check_dummy',
+           'measure_dummy', 'trace_offset_after', 'run']
 
 NSTEPS = (65536, 262144)        # the script's grid sizes
 STEP = (8, 128)                 # one grid step's block
 ITERS = 5                       # timed calls of each stage
+# timed calls of P2 and of torch.mul, per timer and turn: at 262,144 steps
+# each call makes a 1 GiB output, and device_ms captures all of them in
+# one graph, whose pool reuses a freed output (peak printed as peak_gib)
+P2_ITERS = 20
 
 
 def dummy_inputs(nsteps, device, seed=None):
@@ -50,6 +59,12 @@ def dummy_inputs(nsteps, device, seed=None):
     if seed is None:
         return torch.ones((nsteps,) + STEP, device=device)
     return seeded((nsteps,) + STEP, seed, device)
+
+
+def dummy_work(nsteps):
+    """(bytes, float32 operations) of P2 over ``nsteps`` steps: x read
+    once, 2 x written once, one product an element."""
+    return mosaic3.shift_work(nsteps, STEP)
 
 
 def check_dummy(nsteps, device):
@@ -64,6 +79,47 @@ def check_dummy(nsteps, device):
             raise RuntimeError('the dummy kernel differs from 2 x')
         err = max(err, max_abs_err(out, ref))
     return err
+
+
+def measure_dummy(nsteps, device, iters=P2_ITERS):
+    """P2 at ``nsteps`` steps beside ``torch.mul(x, 2.)``: each timer in
+    turns (kernel, library, library, kernel; :func:`in_turns`), ``ms`` per
+    call (:func:`time_ms`) and ``device_ms`` on the device
+    (:func:`device_ms`, after one untimed graph of each), ns per step by
+    each, the plain version's ``ms``, the bound and the peak device memory
+    of the timing (GiB)."""
+    x = dummy_inputs(nsteps, device)
+    kernel = lambda: _kernels.dummy(x)
+    lib = lambda: torch.mul(x, 2.)
+    nbytes, flops = dummy_work(nsteps)
+    bound, by = bound_ms(nbytes, flops)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, lib_ms = in_turns(time_ms, kernel, lib, iters)
+    # the first graph in fresh pool memory after the trace's allocations can
+    # read slow: one untimed graph of each first
+    device_ms(kernel, iters)
+    device_ms(lib, iters)
+    dev_ms, lib_dev_ms = in_turns(device_ms, kernel, lib, iters)
+    return dict(
+        ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+        library_device_ms=lib_dev_ms,
+        plain_ms=time_ms(lambda: _kernels.PLAIN['dummy'](x), ITERS),
+        ns_per_step=ms * 1e6 / nsteps,
+        device_ns_per_step=dev_ms * 1e6 / nsteps,
+        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+        peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+
+
+def _dummy_untimed(nsteps):
+    """P2's entry where nothing is timed: the work and the bound, None for
+    every time."""
+    nbytes, flops = dummy_work(nsteps)
+    bound, by = bound_ms(nbytes, flops)
+    return dict(dict.fromkeys(('ms', 'device_ms', 'library_ms',
+                               'library_device_ms', 'plain_ms',
+                               'ns_per_step', 'device_ns_per_step',
+                               'peak_gib')),
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
 
 
 def trace_offset_after(cell):
@@ -119,8 +175,10 @@ def run(device='cuda', cell=None, offset_after=True):
 
     ``cell``: a :func:`~kaolin_tpu_torch.probes.spc_cell` (default: the SPC
     cell on CUDA, a level-5 sphere with 64^2 rays on the CPU).  Returns
-    dict(dummy={nsteps: {...}}, trace={stage: ms}, counts); no times on
-    the CPU.  Raises if the stages do not compose to ``trace_inputs`` or if
+    dict(dummy={nsteps: {...}}, trace={stage: ms}, counts).  On CUDA the
+    dummy kernel's captured launch is held against its eager one and
+    timed at each of NSTEPS (:func:`measure_dummy`); on the CPU (16 steps)
+    its entry has the work and the bound, and None for every time.  Raises if the stages do not compose to ``trace_inputs`` or if
     the trace differs from :func:`trace_offset_after`; ``offset_after``
     False leaves that comparison and its time (``s3_offset_after``) out, for
     a caller that has made them.
@@ -132,7 +190,11 @@ def run(device='cuda', cell=None, offset_after=True):
                                                        (24, 13))
     res = dict(dummy={}, trace=None)
     for n in (NSTEPS if cuda else (16,)):
-        res['dummy'][n] = dict(max_abs_err=check_dummy(n, device))
+        res['dummy'][n] = dict(_dummy_untimed(n),
+                               max_abs_err=check_dummy(n, device))
+        if cuda:
+            mosaic3.check_captured(dict(x=dummy_inputs(n, device, 3)),
+                                   ('dummy',))
 
     st = _culling(cell)
     sat1 = st['s1']()[2]
@@ -162,15 +224,7 @@ def run(device='cuda', cell=None, offset_after=True):
         return res
 
     for n in NSTEPS:
-        x = dummy_inputs(n, device)
-        ms = time_ms(lambda: _kernels.dummy(x), ITERS)
-        nbytes = 2 * x.numel() * 4
-        bound, by = bound_ms(nbytes, x.numel())
-        res['dummy'][n].update(
-            ms=ms, ns_per_cta=ms * 1e6 / n,
-            plain_ms=time_ms(lambda: _kernels.PLAIN['dummy'](x), ITERS),
-            library_ms=time_ms(lambda: torch.mul(x, 2.), ITERS),
-            bound_ms=bound, bound_by=by)
+        res['dummy'][n].update(measure_dummy(n, device))
 
     out = _trace._outputs(args['num_blocks'], st['rt'], args['kbuf'],
                           device)

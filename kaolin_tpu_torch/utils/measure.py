@@ -17,7 +17,7 @@ import subprocess
 import torch
 
 __all__ = ['HBM_BYTES_PER_S', 'FP32_FLOP_PER_S', 'TRACE', 'time_ms',
-           'device_ms', 'replayed', 'bound_ms', 'card']
+           'device_ms', 'replayed', 'in_turns', 'bound_ms', 'card']
 
 # H100 SXM published peaks (NVIDIA's data sheet, at the 700 W power limit):
 # device memory and float32 outside the tensor cores
@@ -94,6 +94,17 @@ def replayed(fn, warmup=1):
     graph.replay()
     torch.cuda.synchronize()
     return out.clone()
+
+
+def in_turns(timer, kernel, lib, iters):
+    """(kernel ms, library ms or None) by ``timer`` (:func:`time_ms` or
+    :func:`device_ms`), taken in turns (kernel, library, library, kernel)
+    and each pair averaged, so a drift of the card or the host falls on
+    both alike.  ``lib`` None: the kernel alone, once."""
+    if lib is None:
+        return timer(kernel, iters), None
+    k0, l0, l1, k1 = (timer(f, iters) for f in (kernel, lib, lib, kernel))
+    return (k0 + k1) / 2, (l0 + l1) / 2
 
 
 def bound_ms(nbytes, flops):

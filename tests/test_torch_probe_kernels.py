@@ -186,6 +186,60 @@ def test_cuda_p2_matches_plain():
     assert _kernels.LAUNCHES['dummy'] == n0 + 6
 
 
+# (bags, row shape, table rows, CK) for kB (the TMA ring) and kC (kD's
+# kernel with every count CK)
+ROW_SHAPES = {
+    'script': (mosaic3.NB, (mosaic3.R, mosaic3.C), mosaic3.M, mosaic3.CK),
+    'staging': (mosaic3.STAGING['nb'], mosaic3.STAGING['rows'], 15561,
+                mosaic3.STAGING['ck']),
+    'ck 1': (300, (4, 192), 500, 1),
+    'rows of 4 floats': (200, (1, 4), 50, 13),
+    'rows of 20 floats': (200, (5, 4), 50, 40),
+    'rows past one CTA': (100, (8, 256), 64, 9),     # 2 float4s a thread
+    'widest rows': (50, (16, 256), 40, 70),          # MAXV x THREADS float4s
+}
+
+
+@cuda
+@pytest.mark.parametrize('shape', list(ROW_SHAPES))
+@pytest.mark.parametrize('name', ['kB', 'kC'])
+def test_cuda_row_sums_shapes(name, shape):
+    """kB and kC bit for bit against their plain versions on random rows:
+    the script's and the staging shape, one row a bag, rows narrower than a
+    warp, rows wider than one thread's float4 and the widest rows taken;
+    one launch a call, and the captured launch equals the eager one."""
+    nb, rows, m, ck = ROW_SHAPES[shape]
+    inp = _noisy(mosaic3.inputs('cuda', nb, rows, m, ck))
+    n0 = _kernels.LAUNCHES[name]
+    mosaic3.check(inp, (name,))
+    assert _kernels.LAUNCHES[name] == n0 + 1
+    mosaic3.check_captured(inp, (name,))
+
+
+@cuda
+@pytest.mark.parametrize('name', mosaic3.SHIFTS)
+def test_cuda_shift_large_shape(name):
+    """kE..kH at the large shape (65,536 x 8 x 128), where they are timed
+    against their bound."""
+    mosaic3.check(mosaic3.large_inputs('cuda'), (name,))
+
+
+@cuda
+@pytest.mark.parametrize('nsteps, step', [
+    (7, stages.STEP),           # fewer CTAs than one SM holds
+    (5001, stages.STEP),        # not a multiple of the 132 SMs' CTAs
+    (1001, (3, 4)),             # 12 floats a step: a part tile at the end
+    (1, (1, 4))])
+def test_cuda_p2_grid_edges(nsteps, step):
+    """P2 against 2 x bit for bit where the CTAs do not fill the card or
+    the last tile; the captured launch equals the eager one."""
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (nsteps,) + step).astype(np.float32), device='cuda')
+    out = _kernels.dummy(x)
+    assert torch.equal(out.view(torch.int32), (x * 2.).view(torch.int32))
+    mosaic3.check_captured(dict(x=x), ('dummy',))
+
+
 @cuda
 def test_cuda_probe_wrappers_check_inputs():
     inp = mosaic3.inputs('cuda')
@@ -207,3 +261,7 @@ def test_cuda_probe_wrappers_check_inputs():
     with pytest.raises(ValueError, match='nbs'):
         _kernels.kD(inp['nbs'][:, :0].contiguous(), inp['ids'],
                     inp['table'], inp['x'])
+    wide = torch.ones((mosaic3.NB, 1, 4100), device='cuda')
+    with pytest.raises(RuntimeError, match='row_sum'):  # > MAXV x THREADS
+        _kernels.kB(inp['ids'], torch.ones((mosaic3.M, 1, 4100),
+                                           device='cuda'), wide)

@@ -149,6 +149,81 @@ def test_p1_counts_match_script(scripts, name, counts):
         assert int((product != out).sum()) > out.size // 4
 
 
+@pytest.mark.parametrize('table_kind', ['script', 'random'])
+def test_kc_plain_route_matches_kb_and_script(scripts, table_kind):
+    """kC runs on kD's kernel with every count CK: its plain version (kD's
+    with counts CK) equals kB's plain version and the script's kC and kB
+    in interpret mode, bit for bit, on the script's integer rows and on
+    random rows (where the order of the sums shows)."""
+    m = scripts['mosaic3']
+    inp = mosaic3.inputs('cpu')
+    table = None
+    if table_kind == 'random':
+        table = np.random.default_rng(6).standard_normal(
+            (m.M, m.R, m.C)).astype(np.float32)
+        inp['table'] = torch.as_tensor(table)
+    args = mosaic3._args('kC', inp)
+    kc = _kernels.PLAIN['kC'](*args).numpy().view(np.int32)
+    kd = _kernels.PLAIN['kD'](torch.full((m.NB, 2), m.CK, dtype=torch.int32),
+                              *args).numpy().view(np.int32)
+    np.testing.assert_array_equal(kc, kd)
+    np.testing.assert_array_equal(
+        kc, _kernels.PLAIN['kB'](*args).numpy().view(np.int32))
+    for name in ('kC', 'kB'):
+        ref = _jax_p1(m, name, inp['x'].numpy(), table=table)
+        np.testing.assert_array_equal(kc, ref.view(np.int32))
+
+
+def test_ring_constants_match_source():
+    """kB's ring and P2's tile as the probes report them (``_kernels``)
+    are the constants ``csrc/probes.cu`` is built with."""
+    from kaolin_tpu_torch import _cuda
+    src = (_cuda.CSRC / 'probes.cu').read_text()
+    for name in ('KB_SLOTS', 'KB_BARRIERS'):
+        assert f'constexpr int {name} = {getattr(_kernels, name)};' in src
+    assert 'constexpr int THREADS = 256;' in src
+    assert 'constexpr int P2_TILE4 = THREADS;' in src
+    assert _kernels.P2_TILE_BYTES == 256 * 16
+    assert '#include "tma.cuh"' in src
+    assert 'row_sum_kernel' not in src and 'cp.async.cg' not in src
+
+
+def test_p2_designs_name_the_source_table():
+    """The P2 design probe names each entry of its source's table, in
+    order, and times nothing but the card."""
+    from kaolin_tpu_torch.probes import p2_designs
+    src = p2_designs.SOURCE.read_text()
+    table = src[src.index('const Design kDesigns[] = {'):]
+    table = table[:table.index('};')]
+    assert table.count('\n    {') == len(p2_designs.DESIGNS)
+    assert '#include "../csrc/tma.cuh"' in src
+    with pytest.raises(RuntimeError, match='CUDA'):
+        p2_designs.run('cpu')
+
+
+@pytest.mark.parametrize('what, nbytes, bound', [
+    ('P2 65536', 2 * 65536 * 4096, 0.16026),
+    ('P2 262144', 2 * 262144 * 4096, 0.64104),
+    ('shift large', 2 * mosaic3.LARGE_NB * 4096, 0.16026)])
+def test_work_and_bound_from_shapes(what, nbytes, bound):
+    """P2's and kE..kH's bytes (x read once, the output written once) and
+    bound (bytes over 3.35 TB/s) from their shapes alone."""
+    kind, n = what.split()
+    if kind == 'P2':
+        got, flops = stages.dummy_work(int(n))
+        assert flops == int(n) * 1024
+    else:
+        got, flops = mosaic3.shift_work(mosaic3.LARGE_NB,
+                                        (mosaic3.R, mosaic3.C))
+        inp = mosaic3.inputs('cpu')
+        for name in mosaic3.SHIFTS:     # the script shape through _work
+            assert mosaic3._work(name, inp) == mosaic3.shift_work(
+                mosaic3.NB, (mosaic3.R, mosaic3.C))
+    assert got == nbytes
+    ms, by = measure.bound_ms(got, flops)
+    assert by == 'bytes' and ms == pytest.approx(bound, abs=5e-6)
+
+
 def _wrapper_args(name):
     inp = mosaic3.inputs('cpu')
     inp['x'] = torch.as_tensor(np.random.default_rng(4).standard_normal(
@@ -310,12 +385,20 @@ def test_mosaic3_run_cpu():
     assert set(res['max_abs_err']) == set(mosaic3.KERNELS)
     assert all(v == 0. for v in res['max_abs_err'].values())
     assert res['script'] is None and res['staging'] is None  # not timed
+    assert res['large'] is None
 
 
 def test_stages_run_cpu():
     res = stages.run('cpu')
     assert res['trace'] is None                 # not timed on the CPU
     assert res['dummy'][16]['max_abs_err'] == 0.
+    d = res['dummy'][16]
+    for key in ('ms', 'device_ms', 'library_ms', 'library_device_ms',
+                'plain_ms', 'ns_per_step', 'device_ns_per_step',
+                'peak_gib'):
+        assert key in d and d[key] is None      # no time from the CPU
+    assert (d['bytes'], d['flops']) == stages.dummy_work(16)
+    assert d['bound_by'] == 'bytes' and d['bound_ms'] > 0
     c = res['counts']
     assert 0 < c['active_blocks'] < c['blocks'] and c['hits'] > 0
     assert not c['saturated']
