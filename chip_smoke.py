@@ -209,6 +209,27 @@ in the SPC example):
     ``tests/test_examples.py``'s sizes, every K1, K2 and K3 launch they
     make held against its plain version on the inputs it was given.
 
+The multi-GPU DIB-R step of BASELINE config #5 (``kaolin_tpu_torch.parallel``
+on ``torch.distributed``; K1/K2 on every rank):
+
+24. path H: world size 1 on NCCL in this process (a ``file://`` store):
+    ``multi_view_grad`` over the fused trainer loss at the DIB-R cell
+    (512^2, 4 views, 10,000 faces, a 256^2 texture), step 0 against the
+    one-process step on the same inputs and its K1 / K2 launches against
+    their plain versions, 5 Adam steps (the loss falls; the launches
+    counted as ``path_launches['path_h']``), the step in turns with the
+    one-process step, its forward, backward and all-reduce inside the same
+    step, its idle share; config #5's per-view width (1024^2, 8 views):
+    K1 / K2 against plain on one view of the first step's inputs, the
+    step's time, views/s and peak memory; then world size 2 on gloo, both
+    ranks on this card, spawned under a hard cap
+    (``parallel/dryrun.py::run``): the sharded step at 2 views a rank,
+    equal on both ranks and against the one-process 4-view step, and the
+    row-sharded ``'jnp'`` loss on (1 x 2) and (2 x 1) (data x tile) meshes
+    and the row-sharded selection at 128^2, 2 views, against the
+    one-process ``'jnp'`` loss and selection.  Prints the ``parallel``
+    line (each world size with its backend, the card).
+
 Each phase prints its seconds, and the script its total.
 
 Every kernel of the ``kernels`` line carries its time, its plain
@@ -311,6 +332,9 @@ from kaolin_tpu_torch.ops.mesh import face_normals
 from kaolin_tpu_torch.render.mesh import dibr_rasterization, prepare_vertices
 from kaolin_tpu_torch.visualize.ipython import (IpyFirstPersonVisualizer,
                                                 IpyTurntableVisualizer)
+from kaolin_tpu_torch.parallel import (distributed as D, multi_view_grad,
+                                       replicate, shard_views)
+from kaolin_tpu_torch.parallel import dryrun as DR
 
 HEIGHT = WIDTH = 512
 VIEWS = 4
@@ -3683,6 +3707,275 @@ def path_g(dev, card):
                 step_ms=step_ms, idle=idle, peak=peak)
 
 
+# ---------------------------------------------------------------------------
+# Path H: the multi-GPU DIB-R step (parallel/, BASELINE config #5)
+
+PH_CFG5 = dict(height=1024, views=8)    # config #5's per-view width
+PH_TILE = dict(height=128, views=2)     # the row-sharded 'jnp' loss
+PH_RANKS = 2
+PH_TILE_MESHES = ((1, 2), (2, 1))       # (data, tile)
+PH_CAP_S = 300.             # hard cap on the spawned ranks, start-up included
+# the sharded step against the one-process step on the same card: the same
+# kernels and arithmetic on fewer views a call (batched matmuls may take
+# another cuBLAS kernel), and sums over the ranks in another order
+PH_LOSS_RTOL = 1e-5
+PH_GRAD_REL = 1e-4
+
+
+def ph_scene(height, views, dev, backend='fused'):
+    """The DIB-R cell's sphere, texture size and start point as numpy
+    arrays, the targets rendered on ``dev``."""
+    return DR.make_scene(height, views, TEXTURE_RES, SPHERE, backend, KNUM,
+                         device=dev)
+
+
+def ph_close(what, loss, grads, ref):
+    """Loss and gradients against (loss, gradients) of the one-process
+    step; returns the largest gradient error relative to its largest."""
+    ref_loss, ref_grads = ref
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    errs = [float(np.abs(np.asarray(g) - r).max() / np.abs(r).max())
+            for g, r in zip(grads, ref_grads)]
+    print(f'{what}: loss {loss:.7f} vs {ref_loss:.7f} (rel {rel:.2e}, '
+          f'limit {PH_LOSS_RTOL:g}); gradient max|d| / max|g| '
+          f'{", ".join(f"{n} {e:.2e}" for n, e in zip(DR.PARAMS, errs))} '
+          f'(limit {PH_GRAD_REL:g})')
+    _check(rel <= PH_LOSS_RTOL, f'{what}: loss')
+    _check(all(e <= PH_GRAD_REL for e in errs), f'{what}: gradients')
+    return max(errs)
+
+
+def ph_world1(dev, card, scene, ref):
+    """Part 1: world size 1 on NCCL in this process: ``multi_view_grad``
+    over the fused trainer loss at the DIB-R cell's width.  Step 0 against
+    the one-process step, its K1 and K2 launches against their plain
+    versions; 5 Adam steps (K1 / K2 launches counted around step 0 and
+    them); the step and the one-process step in turns; the step's parts
+    (forward, backward, all-reduce) inside the same step; its idle
+    share."""
+    H = HEIGHT
+    mesh = D.make_global_mesh(device=dev)
+    views = shard_views(mesh, tuple(scene[k] for k in DR.VIEW_FIELDS))
+    model = M.InverseRender(*replicate(mesh, DR.start_model(scene, dev)
+                                       .as_params()))
+    loss_fn = DR.view_loss(scene, H, dev)
+    step = multi_view_grad(loss_fn, mesh)
+    for k in FU.LAUNCHES:
+        FU.LAUNCHES[k] = 0
+    with kept_launches() as kept:
+        loss, grads = step(model.as_params(), views)
+        torch.cuda.synchronize()
+    grad_err = ph_close(
+        f'path H step 0, world size 1 (nccl), {VIEWS} views at {H}^2, '
+        f'against the one-process step', loss.item(),
+        [g.cpu().numpy() for g in grads], ref)
+    held, err = hold_against_plain(kept, 'path H step 0')
+    _check(held['fwd'] >= 1 and held['bwd'] >= 1,
+           'path H: K1 and K2 launched in the step')
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    losses = []
+    for _ in range(STEPS):
+        loss, grads = step(model.as_params(), views)
+        for p, g in zip(model.parameters(), grads):
+            p.grad = g
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    launches = dict(FU.LAUNCHES)
+    print(f'path H: {STEPS} Adam steps through multi_view_grad: loss '
+          f'{" -> ".join(f"{x:.6f}" for x in losses)}; K1/K2 launches '
+          f'{launches} (step 0 and the {STEPS} steps); step 0\'s launches '
+          f'held against plain {held}, max abs err K1 prod '
+          f'{err["fwd"]:.3e}, K2 {err["bwd"]:.3e}')
+    _check(losses[-1] < losses[0], 'path H: the loss falls')
+    _check(launches['fwd'] >= STEPS + 1 and launches['bwd'] >= STEPS + 1,
+           'path H: K1 and K2 on every step')
+
+    params = model.as_params()
+    everything = tuple(torch.as_tensor(scene[k], device=dev)
+                       for k in DR.VIEW_FIELDS)
+    sharded_ms, one_ms = measure.in_turns(
+        time_ms, lambda: step(params, views),
+        lambda: torch.autograd.grad(loss_fn(params, everything),
+                                    list(params)), 5)
+
+    def parts_step(mark):
+        def forward(p, v):
+            out = loss_fn(p, v)
+            mark()
+            return out
+
+        def all_reduce(t, axis=None):
+            mark()
+            return type(mesh).all_reduce(mesh, t, axis)
+
+        mesh.all_reduce = all_reduce
+        try:
+            multi_view_grad(forward, mesh)(params, views)
+        finally:
+            del mesh.all_reduce
+        mark()
+
+    names = ('forward', 'backward', 'all-reduce')
+    parts, steps = step_parts_ms(parts_step)
+    line = check_parts('path H step', names, parts, steps)
+    idle = step_profile(lambda: step(params, views), card)
+    print(f'[{card}] path H, world size 1 (nccl): step {sharded_ms:.3f} ms '
+          f'= {VIEWS * H * H / sharded_ms / 1e3:.3f} Mpix/s, the '
+          f'one-process step {one_ms:.3f} ms (in turns); parts: {line}; '
+          f'idle share {idle:.3f}')
+    return dict(launches=launches, k1_err=err['fwd'], k2_err=err['bwd'],
+                grad_err=grad_err, step_ms=sharded_ms, one_ms=one_ms,
+                parts=dict(zip(names, parts.mean(0).tolist())), idle=idle,
+                losses=losses)
+
+
+def ph_config5(dev, card):
+    """Part 2: config #5's per-view width at world size 1: 1024^2, 8
+    views, fused.  K1 and K2 against their plain versions on the first
+    step's inputs, one view (the plain versions take seconds a view at
+    1024^2); the step's time, views/s and peak memory."""
+    H, B = PH_CFG5['height'], PH_CFG5['views']
+    scene = ph_scene(H, B, dev)
+    mesh = D.make_global_mesh(device=dev)
+    views = shard_views(mesh, tuple(scene[k] for k in DR.VIEW_FIELDS))
+    model = DR.start_model(scene, dev)
+    cams = M.CameraViews(views[0], views[1],
+                         torch.as_tensor(scene['camera_proj'], device=dev))
+    vt, tr, ctr, cbb = kernel_inputs(dict(
+        height=H, views=cams, faces=torch.as_tensor(scene['faces'],
+                                                   device=dev),
+        params=model.as_params()))
+    one = tuple(x[:1].contiguous() for x in (vt, tr, ctr, cbb))
+    saved = dict(FU.LAUNCHES)
+    fid, prod, k1_err = check_forward(dict(height=H), one)
+    _, k2_err = check_backward(dict(height=H), one, fid, prod)
+    FU.LAUNCHES.update(saved)
+    del vt, tr, ctr, cbb, one, fid, prod
+    print(f'path H config #5 width: K1 and K2 held against plain on the '
+          f'first step\'s inputs, 1 of the {B} views (the plain versions '
+          f'run seconds a view at {H}^2)')
+    step = multi_view_grad(DR.view_loss(scene, H, dev), mesh)
+    params = model.as_params()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = step(params, views)
+    _check(bool(torch.isfinite(loss)), 'path H config #5 width: loss finite')
+    ms = time_ms(lambda: step(params, views), 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[{card}] path H, config #5 per-view width (world size 1, nccl, '
+          f'{B} views at {H}^2, fused): step {ms:.3f} ms = '
+          f'{B / ms * 1e3:.2f} views/s = {B * H * H / ms / 1e3:.3f} Mpix/s; '
+          f'peak device memory {peak:.3f} GiB')
+    return dict(step_ms=ms, views_per_s=B / ms * 1e3, peak_gib=peak,
+                k1_err=k1_err, k2_err=k2_err)
+
+
+def ph_world2(dev, card, scene, ref):
+    """Part 3: world size 2 on gloo, both ranks on this card, spawned by
+    ``parallel/dryrun.py::run`` under its hard cap: the sharded fused step
+    (2 views a rank, against the one-process 4-view step), then the
+    row-sharded 'jnp' loss on (1 x 2) and (2 x 1) meshes and the sharded
+    selection on (1 x 2), at 128^2, 2 views, against the one-process
+    'jnp' loss and selection on this card.  NCCL refuses two ranks on one
+    device, hence gloo (which takes CUDA tensors in all_reduce and
+    broadcast)."""
+    H, B = PH_TILE['height'], PH_TILE['views']
+    tile_scene = ph_scene(H, B, dev, backend='jnp')
+    t0 = time.perf_counter()
+    ranks = DR.run(PH_RANKS, [
+        (DR.sharded_step, dict(scene=scene, height=HEIGHT)),
+        (DR.tile_checks, dict(scene=tile_scene, height=H, knum=KNUM,
+                              meshes=PH_TILE_MESHES,
+                              selection_mesh=PH_TILE_MESHES[0]))],
+        timeout=PH_CAP_S, dist_backend='gloo', device=dev)
+    secs = time.perf_counter() - t0
+    steps = [r[0] for r in ranks]
+    for s in steps[1:]:
+        _check(s['loss'] == steps[0]['loss'] and all(
+            np.array_equal(a, b) for a, b in zip(s['grads'],
+                                                 steps[0]['grads'])),
+            'path H world size 2: loss and gradients equal on the ranks')
+    _check(all(s['launches']['fwd'] >= 1 and s['launches']['bwd'] >= 1
+               and all(s['moved']) for s in steps),
+           'path H world size 2: K1 and K2 on every rank, Adam moved')
+    step_err = ph_close(
+        f'path H world size 2 (gloo, 2 ranks on one card), {VIEWS // 2} '
+        f'views a rank, against the one-process {VIEWS}-view step',
+        steps[0]['loss'], steps[0]['grads'], ref)
+
+    tile_ref = DR.one_process_step(tile_scene, H, backend='jnp', knum=KNUM,
+                                   device=dev)
+    model = DR.start_model(tile_scene, dev)
+    cams = M.CameraViews(*(torch.as_tensor(tile_scene[k], device=dev)
+                           for k in ('camera_rot', 'camera_trans',
+                                     'camera_proj')))
+    faces = torch.as_tensor(tile_scene['faces'], device=dev)
+    with torch.no_grad():
+        fvc, fvi, fn = M._prepare(model, cams, faces)
+        sel_ref = rasterize_selection(H, H, fvc[..., 2], fvi,
+                                      valid_faces=fn[..., 2] >= 0.,
+                                      backend='jnp').cpu().numpy()
+    tile_err = 0.
+    for shape in PH_TILE_MESHES:
+        got = [r[1]['loss'][shape] for r in ranks]
+        _check(all(g[0] == got[0][0] and all(
+            np.array_equal(a, b) for a, b in zip(g[1], got[0][1]))
+            for g in got), f'path H tile {shape}: equal on the ranks')
+        tile_err = max(tile_err, ph_close(
+            f'path H tile_sharded_render_loss on a {shape} (data x tile) '
+            f'mesh, {B} views at {H}^2, against the one-process '
+            f'render_loss(backend=\'jnp\')', got[0][0], got[0][1], tile_ref))
+    same = all(np.array_equal(r[1]['selection'], sel_ref) for r in ranks)
+    print(f'path H tile_sharded_selection on {PH_TILE_MESHES[0]}: equal to '
+          f'rasterize_selection(backend=\'jnp\') on every rank: {same}')
+    _check(same, 'path H: the row-sharded selection')
+    print(f'[{card}] path H, world size {PH_RANKS} (gloo, both ranks on '
+          f'cuda:0): the spawn and both jobs {secs:.2f} s (host clock, cap '
+          f'{PH_CAP_S:g} s; start-up included); K1/K2 launches per rank '
+          f'{[s["launches"] for s in steps]}')
+    return dict(seconds=secs, launches=[s['launches'] for s in steps],
+                grad_err=step_err, tile_grad_err=tile_err,
+                loss=steps[0]['loss'], gnorm=steps[0]['gnorm'])
+
+
+def path_h(dev, card):
+    """Phase 24: path H, the multi-GPU DIB-R step of BASELINE config #5
+    through ``kaolin_tpu_torch.parallel``: world size 1 on NCCL in this
+    process (the DIB-R cell, then config #5's per-view width), then world
+    size 2 on gloo in two spawned ranks on this card.  Prints the
+    ``parallel`` line."""
+    scene = ph_scene(HEIGHT, VIEWS, dev)
+    ref = DR.one_process_step(scene, HEIGHT, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        D.initialize('file://' + os.path.join(tmp, 'store'), 1, 0,
+                     backend='nccl')
+        try:
+            one = ph_world1(dev, card, scene, ref)
+            torch.cuda.empty_cache()
+            cfg5 = ph_config5(dev, card)
+        finally:
+            torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    two = ph_world2(dev, card, scene, ref)
+    print(json.dumps({'parallel': dict(
+        card=card,
+        world_size_1=dict(backend='nccl', views=VIEWS, height=HEIGHT,
+                          **{k: one[k] for k in ('step_ms', 'one_ms',
+                                                 'parts', 'idle')}),
+        config5_width=dict(backend='nccl', views=PH_CFG5['views'],
+                           height=PH_CFG5['height'],
+                           **{k: cfg5[k] for k in ('step_ms', 'views_per_s',
+                                                   'peak_gib')}),
+        world_size_2=dict(backend='gloo', ranks_on_one_card=PH_RANKS,
+                          views_per_rank=VIEWS // PH_RANKS, height=HEIGHT,
+                          seconds=two['seconds'],
+                          launches=two['launches']))}))
+    return dict(launches=one['launches'],
+                k1_err=max(one['k1_err'], cfg5['k1_err']),
+                k2_err=max(one['k2_err'], cfg5['k2_err']))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is '
@@ -3779,6 +4072,10 @@ def main():
     path_g_out = path_g(dev, card)
     phase('23: path G (datasets -> synthetic views -> DIB-R fit -> dash3d '
           'and the visualizers; the examples)')
+    torch.cuda.empty_cache()
+    path_h_out = path_h(dev, card)
+    phase('24: path H (the DIB-R step sharded over ranks: world size 1 on '
+          'nccl, config #5\'s width, world size 2 on gloo)')
 
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
     trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cu'
@@ -3788,14 +4085,17 @@ def main():
              launches=(launches['fwd'] + path_c_out['launches']
                        + path_f_out['launches']['fwd']
                        + path_g_out['launches']['fwd']
-                       + path_g_out['examples']['fwd']),
+                       + path_g_out['examples']['fwd']
+                       + path_h_out['launches']['fwd']),
              path_launches={'dibr': launches['fwd'],
                             'path_c': path_c_out['launches'],
                             'path_f': path_f_out['launches']['fwd'],
                             'path_g': path_g_out['launches']['fwd'],
-                            'examples': path_g_out['examples']['fwd']},
+                            'examples': path_g_out['examples']['fwd'],
+                            'path_h': path_h_out['launches']['fwd']},
              max_abs_err=max(k1_err, path_c_out['k1_err'],
-                             path_f_out['k1_err'], path_g_out['k1_err']),
+                             path_f_out['k1_err'], path_g_out['k1_err'],
+                             path_h_out['k1_err']),
              ms=t['k1_ms'], plain_ms=t['k1_plain_ms'],
              **_bound(k1_b, k1_f), library_ms=None,
              path_c_ms=path_c_out['k1_ms'],
@@ -3804,13 +4104,15 @@ def main():
              replaces='kaolin_tpu/render/mesh/_fused.py:386',
              launches=(launches['bwd'] + path_f_out['launches']['bwd']
                        + path_g_out['launches']['bwd']
-                       + path_g_out['examples']['bwd']),
+                       + path_g_out['examples']['bwd']
+                       + path_h_out['launches']['bwd']),
              path_launches={'dibr': launches['bwd'],
                             'path_f': path_f_out['launches']['bwd'],
                             'path_g': path_g_out['launches']['bwd'],
-                            'examples': path_g_out['examples']['bwd']},
+                            'examples': path_g_out['examples']['bwd'],
+                            'path_h': path_h_out['launches']['bwd']},
              max_abs_err=max(k2_err, path_f_out['k2_err'],
-                             path_g_out['k2_err']),
+                             path_g_out['k2_err'], path_h_out['k2_err']),
              ms=t['k2_ms'], plain_ms=t['k2_plain_ms'],
              **_bound(k2_b, k2_f), library_ms=None),
         dict(name='spc_trace_kernel', route='cuda', source=trace_src,

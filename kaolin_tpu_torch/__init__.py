@@ -36,7 +36,10 @@ SHREC16), synthetic-view import (:mod:`kaolin_tpu_torch.io.render`), the
 tensor checkers of :mod:`kaolin_tpu_torch.utils.testing`, the Jupyter
 visualizers (:mod:`kaolin_tpu_torch.visualize.ipython`), the dash3d viewer
 (:mod:`kaolin_tpu_torch.experimental.dash3d`) and the examples
-(:mod:`kaolin_tpu_torch.examples`).
+(:mod:`kaolin_tpu_torch.examples`); slice 13, multi-GPU execution on
+``torch.distributed`` (:mod:`kaolin_tpu_torch.parallel`: rank meshes, the
+view-sharded gradient, row-sharded rendering, a spawned dry run),
+:mod:`kaolin_tpu_torch.ops.gather` and ``pack_octree_host``.
 """
 
 __version__ = "0.1.0"
@@ -48,3 +51,4 @@ from kaolin_tpu_torch import render  # noqa: F401
 from kaolin_tpu_torch import rep  # noqa: F401
 from kaolin_tpu_torch import utils  # noqa: F401
 from kaolin_tpu_torch import visualize  # noqa: F401
+from kaolin_tpu_torch import parallel  # noqa: F401

@@ -17,11 +17,12 @@ the card round every operation the same way; the barycentric coordinates
 are evaluated in float64.
 """
 
+import numpy as np
 import torch
 
 __all__ = ['morton_i32', 'morton2_i32', 'morton_i64',
-           'points_to_octree_device', 'pack_octree_device',
-           'mesh_to_spc_device']
+           'points_to_octree_device', 'pack_octree_host',
+           'pack_octree_device', 'mesh_to_spc_device']
 
 _OFFS = torch.tensor([[(k >> 2) & 1, (k >> 1) & 1, k & 1] for k in range(8)],
                      dtype=torch.int32)
@@ -130,10 +131,31 @@ def points_to_octree_device(points, valid, level, cap=None):
     return (octree, counts, int(counts.sum()), _pad(leaf, cap), n_leaf)
 
 
+def pack_octree_host(octree_padded, level_counts, cap):
+    """Trim the padded per-level byte blocks of
+    :func:`points_to_octree_device` into one contiguous octree on the host.
+
+    Args:
+        octree_padded: ``(levels * cap,)`` uint8 tensor or array.
+        level_counts: ``(levels,)`` bytes per level, tensor or array.
+        cap: bytes per level block.
+
+    Returns:
+        ``(sum(level_counts),)`` ``np.uint8`` array.
+    """
+    arr = np.asarray(octree_padded.cpu() if torch.is_tensor(octree_padded)
+                     else octree_padded)
+    counts = np.asarray(level_counts.cpu() if torch.is_tensor(level_counts)
+                        else level_counts)
+    return np.concatenate([arr[i * cap:i * cap + int(c)]
+                           for i, c in enumerate(counts)])
+
+
 def pack_octree_device(octree_padded, level_counts, cap, out_cap=None):
     """Compact the per-level blocks of :func:`points_to_octree_device` into
     one contiguous prefix of an ``out_cap`` buffer (default: the padded
-    size).  Returns (octree (out_cap,) uint8, total_bytes int)."""
+    size), on their device: :func:`pack_octree_host` without the copy to the
+    host.  Returns (octree (out_cap,) uint8, total_bytes int)."""
     levels = octree_padded.shape[0] // cap
     if out_cap is None:
         out_cap = octree_padded.shape[0]

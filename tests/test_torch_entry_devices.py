@@ -56,8 +56,14 @@ from kaolin_tpu_torch.io import dataset, modelnet, shapenet, shrec
 from kaolin_tpu_torch.io.render import import_synthetic_view
 from kaolin_tpu_torch.utils.testing import (write_modelnet, write_shapenet_v2,
                                             write_shrec16, write_synthetic_view)
+from kaolin_tpu_torch.parallel import make_mesh
+from kaolin_tpu_torch.parallel.distributed import make_global_mesh
 
 LEVEL = 3
+
+
+def _on_mesh(mesh):
+    return mesh.broadcast(torch.ones(1, device=mesh.device))
 
 
 class _Mesh:
@@ -337,6 +343,10 @@ ENTRY = {
                                            ['--level', '3', '--rays', '64']),
     'examples.sg_lighting_demo': _example('sg_lighting_demo',
                                           ['--size', '16', '--steps', '1']),
+    # slice 13: a mesh's device, through its (identity) broadcast
+    'make_mesh': lambda device=None: _on_mesh(make_mesh(device=device)),
+    'make_global_mesh': lambda device=None: _on_mesh(
+        make_global_mesh(device=device)),
 }
 
 

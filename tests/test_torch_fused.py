@@ -244,6 +244,13 @@ def test_port_imports_no_jax():
             'from kaolin_tpu_torch.examples import camera_tour, '
             'dibr_inverse_rendering, dmtet_demo, sg_lighting_demo, '
             'spc_raytrace_demo; '
+            'from kaolin_tpu_torch import parallel; '
+            'from kaolin_tpu_torch.parallel import distributed, dryrun, '
+            'sharding, tile; '
+            'from kaolin_tpu_torch.ops import gather; '
+            'from kaolin_tpu_torch.ops.spc.device import pack_octree_host; '
+            'import torch.distributed as dist; '
+            'assert not dist.is_initialized(); '
             'bad = [m for m in sys.modules '
             "if m == 'jax' or m.startswith(('jax.', 'kaolin_tpu.'))]; "
             'print(bad); sys.exit(1 if bad else 0)')

@@ -1,5 +1,8 @@
 """Mesh -> SPC builders of the port against the JAX package, on the CPU.
 
+``pack_octree_host``: bit for bit equal to the JAX package's on the
+random-point octrees of ``test_spc_device.py``.
+
 The device builder (float32) and the host builder (numpy float64) of both
 packages on the octahedron of ``test_spc_device.py``, on a small UV sphere
 and on a tiny triangle at level 12.  Octree bytes and points: exact
@@ -20,13 +23,18 @@ import torch
 from kaolin_tpu.ops.conversions.trianglemesh import (
     unbatched_mesh_to_spc as jax_host, unbatched_mesh_to_spc_device as
     jax_device)
+from kaolin_tpu.ops.spc.device import (
+    pack_octree_host as jax_pack, points_to_octree_device as jax_octree)
+from kaolin_tpu.ops.spc.points import unbatched_points_to_octree
 from kaolin_tpu.ops.spc.spc import scan_octrees as jax_scan
 from kaolin_tpu.ops.spc.spc import generate_points as jax_points
 from kaolin_tpu.render.spc.raytrace import unbatched_raytrace as jax_bfs
 from kaolin_tpu_torch.ops.conversions.trianglemesh import (
     _tri_aabb_sat, unbatched_mesh_to_spc, unbatched_mesh_to_spc_device)
 from kaolin_tpu_torch.ops.spc import generate_points, scan_octrees
-from kaolin_tpu_torch.ops.spc.device import mesh_to_spc_device
+from kaolin_tpu_torch.ops.spc.device import (
+    mesh_to_spc_device, pack_octree_device, pack_octree_host,
+    points_to_octree_device)
 from kaolin_tpu_torch.render.spc import unbatched_raytrace
 from kaolin_tpu_torch.utils.testing import uv_sphere
 
@@ -144,3 +152,33 @@ def test_device_octree_raytraceable():
     assert out[0].shape[0] > 0
     for a, b in zip(ref, out):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize('level,cap', [(2, 1024), (4, 1024), (7, 1024),
+                                       (11, 512), (12, 512)])
+def test_pack_octree_host(level, cap):
+    """The octrees of ``test_spc_device.py:36, :108`` (500 / 300 random
+    points, numpy seed = level) packed on the host: the port's
+    ``pack_octree_host`` of its own padded blocks (as tensors and as
+    arrays) bit for bit equal to the JAX package's of its own, to the
+    prefix of ``pack_octree_device`` and to the host octree builder."""
+    n = 500 if level <= 10 else 300
+    pts = np.random.RandomState(level).randint(0, 2 ** level, (n, 3))
+    padded = np.zeros((cap, 3), np.int32)
+    padded[:n] = pts
+    valid = np.zeros(cap, bool)
+    valid[:n] = True
+    octree_j, counts_j = jax_octree(padded, valid, level, cap=cap)[:2]
+    ref = jax_pack(octree_j, counts_j, cap)
+    octree_t, counts_t, nbytes = points_to_octree_device(
+        torch.as_tensor(padded), torch.as_tensor(valid), level, cap=cap)[:3]
+    host = pack_octree_host(octree_t, counts_t, cap)
+    assert host.dtype == np.uint8 and ref.dtype == np.uint8
+    np.testing.assert_array_equal(host, ref)
+    np.testing.assert_array_equal(
+        pack_octree_host(octree_t.numpy(), counts_t.numpy(), cap), ref)
+    np.testing.assert_array_equal(
+        host, np.asarray(unbatched_points_to_octree(pts, level)))
+    packed, total = pack_octree_device(octree_t, counts_t, cap)
+    assert total == nbytes == host.shape[0]
+    np.testing.assert_array_equal(packed[:total].numpy(), host)
