@@ -17,14 +17,21 @@ SH-lit render -> image L1 + mask IoU loss -> backward -> Adam) at 512^2,
    both kernels cull to (K1's evaluated (pixel, face) pairs beside those of
    one CTA per tile walking whole chunks, its face lists per sub-tile, K2's
    sub-tiles with a non-zero g*prod), counted in torch from their rules;
-4. 5 Adam steps; then step 0's loss and gradients at 128^2 and one view
-   on the card against the same step on the CPU, where the wrappers run
-   the plain versions (phases 2-3 hold the kernels against their plain
-   versions at full size);
-5. times (CUDA events after warm-up) of the step and of each kernel
-   beside its plain version; the step on the card's timeline
+4. 5 Adam steps of the compiled step (``models.inverse_render.
+   compiled_step``: one CUDA graph replayed a step, K1 and K2 in it)
+   against 5 eager steps from the same parameters (the first replay's
+   face ids, soft-mask product and loss bit for bit, its gradients within
+   1e-5 of their largest, every loss within step 0's limit), K1 and K2 as
+   captured held against their plain versions on the graph's inputs, one
+   launch of each counted per replay; then step 0's loss and gradients at
+   128^2 and one view on the card against the same step on the CPU, where
+   the wrappers run the plain versions (phases 2-3 hold the kernels
+   against their plain versions at full size);
+5. times (CUDA events after warm-up) of the eager step and the compiled
+   step in turns, of the compiled step's graph alone, and of each kernel
+   beside its plain version; both steps on the card's timeline
    (``torch.profiler``): kernels per step, device busy and idle share, the
-   largest kernels.
+   largest kernels; their peak memory.
 
 The SPC pipeline of BASELINE config #3 (mesh -> level-10 octree -> coherent
 trace of 1,048,576 camera rays -> per-ray opacity), on the same 10,000-face
@@ -357,6 +364,10 @@ K2_REL_MAX = 1e-3           # max |grad diff| / max |grad|
 # index/grid_sample backward's atomic sums
 STEP0_LOSS_RTOL = 1e-4
 STEP0_GRAD_REL = 1e-3
+# the compiled step's first replay against the eager step from the same
+# parameters: the same kernels; only the gather and grid_sample backward's
+# atomic sums differ in order
+REPLAY_GRAD_REL = 1e-5
 # a step's parts, timed by contiguous CUDA events inside it, against the
 # step: only the float rounding of elapsed_time lies between them
 PARTS_RTOL, PARTS_ATOL_MS = 0.01, 0.01
@@ -520,20 +531,24 @@ def toolchain(card):
     for name in ('PIL', 'tornado'):
         found = importlib.util.find_spec(name) is not None
         print(f'{name} {"is" if found else "is not"} installed')
-    names = sorted(p.stem for p in _cuda.CSRC.glob('*.cu'))
+    # a source with Python entry points is built with them (the kernels'
+    # route); one nvcc each, all at once
     modules = sorted(p.stem[:-len('_module')]
                      for p in _cuda.CSRC.glob('*_module.cpp'))
+    names = sorted(p.stem for p in _cuda.CSRC.glob('*.cu')
+                   if p.stem not in modules)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + len(modules)) as pool:
-        builds = ([pool.submit(_cuda.load, n) for n in names]    # one nvcc
+        builds = ([pool.submit(_cuda.load, n) for n in names]
                   + [pool.submit(_cuda.load_module, m) for m in modules])
         for b in builds:
             b.result()
     print(f'kernel builds + loads, in parallel '
-          f'({", ".join(n + ".cu" for n in names)}; extension modules '
+          f'({", ".join(n + ".cu" for n in names) or "no plain library"}; '
+          f'extension modules '
           f'{", ".join(f"{m}.cu + {m}_module.cpp" for m in modules)}): '
           f'{time.perf_counter() - t0:.2f} s')
-    for name in names:          # a module's kernels are its .cu's
+    for name in names + [f'{m}_module' for m in modules]:
         for line in _cuda.BUILD_LOG.get(name, '').splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 print(f'  ptxas: {line.strip()}')
@@ -733,34 +748,135 @@ def check_step_against_plain(scene):
     return cpu_s
 
 
+def _adam(params):
+    """The trainer's Adam, its update captured in the compiled step (on
+    the CPU of a rehearsal, where Adam cannot be capturable, eager)."""
+    return torch.optim.Adam(params.parameters(), lr=LR,
+                            capturable=params.vertices.is_cuda)
+
+
+def _twin(params):
+    """A copy of the model ``params`` on its device."""
+    return M.from_jax_params(*(p.detach().cpu().numpy() for p in (
+        params.vertices, params.texture_map, params.sh_coeffs)),
+        device=params.vertices.device)
+
+
+def compiled(scene, params, opt):
+    """``M.compiled_step`` of the trainer on ``scene``, a callable of no
+    arguments that takes one step (one replay of its CUDA graph)."""
+    H = scene['height']
+    step = M.compiled_step(params, scene['views'], scene['faces'],
+                           scene['face_uvs'], scene['target_images'],
+                           scene['target_masks'], H, H, opt,
+                           backend=scene['backend'], knum=scene['knum'])
+
+    def call():
+        return step(scene['views'], scene['target_images'],
+                    scene['target_masks'])
+    call.step = step
+    return call
+
+
+def _selected(sel):
+    """face_idx and the soft mask's selection state (the fused product, or
+    the 'jnp' k-buffer) of a compute_selection output."""
+    return sel[0], (sel[1].prod if isinstance(sel[1], FU.FusedSelection)
+                    else sel[1])
+
+
 def train(scene, steps=STEPS):
-    """The trainer: ``steps`` Adam steps.  Returns (the kernels' launch
-    counts, the losses)."""
+    """The trainer: ``steps`` Adam steps of the compiled step (one CUDA
+    graph replayed a step), held against the eager step + Adam from the
+    same parameters: step 0's face ids, soft-mask selection and loss bit
+    for bit and its gradients within REPLAY_GRAD_REL of their largest;
+    every step's loss within step 0's card-vs-CPU limit (later steps'
+    gradients are printed: the two runs' parameters part by the order of
+    the atomic sums, which Adam's first steps enlarge where a gradient is
+    near zero); K1 and K2 as launched inside the graph against their plain
+    versions on the graph's own inputs.  Returns (the kernels' launches
+    over the replays, the losses, the compiled step, the peak memory of
+    its build and replays)."""
     params = scene['params']
-    opt = torch.optim.Adam(params.parameters(), lr=LR)
     start = {n: p.detach().clone() for n, p in params.named_parameters()}
-    losses = []
+    twin, eager = _twin(params), []
+    opt_e = _adam(twin)
+    for k in range(steps):
+        loss, sel = _step(scene, twin)
+        eager.append(dict(loss=loss.detach(), sel=[
+            x.clone() for x in _selected(sel)],
+            grads=[p.grad.clone() for p in twin.parameters()]))
+        opt_e.step()
+    del twin, opt_e
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with kept_launches() as kept:
+        call = compiled(scene, params, _adam(params))
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     for k in FU.LAUNCHES:
         FU.LAUNCHES[k] = 0
-    for step in range(steps):
-        t0 = time.perf_counter()
-        loss, sel = _step(scene, params)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        _check(params.vertices.grad.abs().max().item() > 0,
-               'vertex gradient non-zero')
-        opt.step()
-        losses.append(loss.item())
-        print(f'step {step} ({scene["backend"]}): loss {losses[-1]:.7f} '
-              f'({dt * 1e3:.1f} ms host clock, first step includes '
-              f'warm-up)')
+    out = []
+    t0 = time.perf_counter()
+    for k in range(steps):
+        loss = call()
+        # kept on the device: nothing is read back inside the loop
+        out.append(dict(loss=loss, sel=[x.clone() for x in _selected(
+            call.step.selection)], grads=[p.grad.clone()
+                                          for p in params.parameters()]))
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(FU.LAUNCHES)
-    print(f'kernel launches during the {steps} steps: {launches}')
+    peak = torch.cuda.max_memory_allocated()
+    print(f'compiled step ({scene["backend"]}): built in {build_s:.2f} s '
+          f'(host clock: {M._WARMUP} warm-up steps, the state put back, '
+          f'the capture); {steps} replays in {loop_ms:.1f} ms host clock, '
+          f'read once after them; peak allocated over build and replays '
+          f'{peak / 2 ** 30:.3f} GiB')
+    losses = [o['loss'].item() for o in out]
+    for k, (o, e) in enumerate(zip(out, eager)):
+        rel = abs(losses[k] - e['loss'].item()) / abs(e['loss'].item())
+        g_rel = [(a - b).abs().max().item() / max(b.abs().max().item(),
+                                                  1e-30)
+                 for a, b in zip(o['grads'], e['grads'])]
+        print(f'step {k} ({scene["backend"]}): loss {losses[k]:.7f}, eager '
+              f'{e["loss"].item():.7f} (rel {rel:.2e}, limit '
+              f'{STEP0_LOSS_RTOL:g}); gradients against eager\'s step {k} '
+              f'max|d| / max|g| ' + ', '.join(f'{x:.2e}' for x in g_rel))
+        _check(rel <= STEP0_LOSS_RTOL, f'step {k} loss against eager')
+        _check(o['grads'][0].abs().max().item() > 0,
+               'vertex gradient non-zero')
+    o, e = out[0], eager[0]
+    same = [torch.equal(_bits(a) if a.is_floating_point() else a,
+                        _bits(b) if b.is_floating_point() else b)
+            for a, b in zip(o['sel'] + [o['loss']], e['sel'] + [e['loss']])]
+    g_rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+             for a, b in zip(o['grads'], e['grads'])]
+    print(f'step 0, replay against eager from the same parameters: face_idx, '
+          f'soft-mask selection, loss bit-equal {same}; gradients max|d| / '
+          f'max|g| ' + ', '.join(f'{x:.2e}' for x in g_rel)
+          + f' (limit {REPLAY_GRAD_REL:g}: the gather and grid_sample '
+          f'backward add with atomics)')
+    _check(all(same), 'step 0: the replay bit-equal to eager')
+    _check(all(x <= REPLAY_GRAD_REL for x in g_rel),
+           'step 0: the replay\'s gradients against eager')
+    in_graph = {k: [e for e in v if e[3]] for k, v in kept.items()}
+    held, err = hold_against_plain(in_graph, 'K1/K2 inside the graph')
+    print(f'K1/K2 as launched inside the graph, on its last replay\'s '
+          f'inputs, against plain: {held} held, max abs err {err}')
+    fused = scene['backend'] == 'fused'
+    _check(held['fwd'] == held['bwd'] == int(fused) and not held['trace'],
+           'the graph holds one K1 and one K2 launch (fused)')
+    print(f'kernel launches during the {steps} replays: {launches}')
+    _check(launches == dict(fwd=steps * fused, bwd=steps * fused),
+           'one K1 and one K2 launch counted per replay')
     _check(all(np.isfinite(losses)), 'losses finite')
+    _check(losses[-1] < losses[0], 'the loss falls')
     for n, p in params.named_parameters():
         _check(torch.isfinite(p).all().item(), f'{n} finite')
         _check(not torch.equal(p.detach(), start[n]), f'{n} moved')
-    return launches, losses
+    return launches, losses, call, peak
 
 
 def step_profile(step, card, steps=3, top=8):
@@ -798,30 +914,63 @@ def step_profile(step, card, steps=3, top=8):
     return 1 - busy / 1e3 / wall
 
 
-def times(scene, inputs, g_prod, card):
-    """Phase 5: device times after warm-up."""
+def times(scene, inputs, g_prod, card, call, peak):
+    """Phase 5: the eager step (selection + render_loss + backward +
+    Adam, launched from Python) and the compiled step ``call`` (one CUDA
+    graph) in turns by ``time_ms``, which reads the host where the host is
+    slower, as a caller pays it; the compiled step's device time alone,
+    by events around back-to-back replays of its graph (a replay is one
+    launch from the host and cannot itself be captured, so
+    ``measure.device_ms`` cannot time it); each step on the card's
+    timeline; the peak memory of each (``peak``: the compiled step's build
+    and replays, from :func:`train`); the kernels beside their plain
+    versions."""
     H = scene['height']
     B = scene['views'].camera_rot.shape[0]
     F = scene['faces'].shape[0]
     vt, tr, ctr, cbb = inputs
-    step_ms = time_ms(lambda: _step(scene, scene['params']), 5)
-    step_profile(lambda: _step(scene, scene['params']), card)
+    params = scene['params']
+    opt_e = _adam(params)
+
+    def eager():
+        _step(scene, params)
+        opt_e.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager()
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    compiled_ms, eager_ms = measure.in_turns(time_ms, call, eager, 5)
+    device = time_ms(call.step.graph.replay, 5)
+    print(f'[{card}] compiled step: profile')
+    idle_c = step_profile(call, card)
+    print(f'[{card}] eager step: profile')
+    idle_e = step_profile(eager, card)
     fwd = (vt, tr, cbb, H, H, MULT, EPS, SIGMAINV, True)
     bwd = (vt, ctr, cbb, g_prod, H, H, MULT, SIGMAINV)
     k1_ms = time_ms(lambda: FU._fused_forward_cuda(*fwd), 20)
     k1_plain_ms = time_ms(lambda: FU._fused_forward_torch(*fwd), 3)
     k2_ms = time_ms(lambda: FU._fused_backward_cuda(*bwd), 20)
     k2_plain_ms = time_ms(lambda: FU._fused_backward_torch(*bwd), 3)
-    print(f'[{card}] fwd+bwd step (selection + render_loss + backward, '
-          f'{B} views, {H}x{H}, {F} faces): {step_ms:.3f} ms = '
-          f'{B * H * H / step_ms / 1e3:.3f} Mpix/s, '
-          f'{B * F / step_ms * 1e3:.0f} triangles/s')
+    for what, ms, idle, pk in (
+            ('eager step (selection + render_loss + backward + Adam, from '
+             'Python)', eager_ms, idle_e, eager_peak),
+            ('compiled step (the same, one CUDA graph)', compiled_ms, idle_c,
+             peak)):
+        print(f'[{card}] {what}, {B} views, {H}x{H}, {F} faces: {ms:.3f} ms '
+              f'= {B * H * H / ms / 1e3:.3f} Mpix/s, '
+              f'{B * F / ms * 1e3:.0f} triangles/s (in turns); idle share '
+              f'{idle:.3f}; peak allocated {pk / 2 ** 30:.3f} GiB')
+    print(f'[{card}] compiled step on the device alone (its graph\'s '
+          f'replays back to back): {device:.3f} ms = '
+          f'{B * H * H / device / 1e3:.3f} Mpix/s')
     print(f'[{card}] K1 fused_forward_kernel {k1_ms:.4f} ms, plain '
           f'{k1_plain_ms:.4f} ms')
     print(f'[{card}] K2 fused_backward_kernel {k2_ms:.4f} ms, plain '
           f'{k2_plain_ms:.4f} ms')
-    return dict(step_ms=step_ms, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
-                k2_ms=k2_ms, k2_plain_ms=k2_plain_ms)
+    return dict(step_ms=compiled_ms, eager_ms=eager_ms, device_ms=device,
+                k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k2_ms=k2_ms,
+                k2_plain_ms=k2_plain_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -1522,9 +1671,9 @@ def config1(dev, card):
     _check(share <= JNP_FID_MISMATCH_MAX and ties,
            "'jnp' selection equals K1's but at z ties")
 
-    launches, losses = train(scene)
+    launches, losses, call, _ = train(scene)
+    del call
     _check(sum(launches.values()) == 0, "the 'jnp' path runs no kernel")
-    _check(losses[-1] < losses[0], 'the loss falls')
     cpu_s = check_step_against_plain(make_scene(
         dev, mesh=mesh, **dict(CFG1, **STEP0_SIZE)))
 
@@ -3473,8 +3622,11 @@ def _clone(x):
 @contextlib.contextmanager
 def kept_launches():
     """Within the block, keep the inputs and the outputs of every launch
-    of K1, K2 and K3, by LAUNCHES key, for :func:`hold_against_plain`.
-    The launches themselves, and their counts, are the caller's."""
+    of K1, K2 and K3, by LAUNCHES key, for :func:`hold_against_plain`:
+    (args, kwargs, outputs, captured).  A launch captured in a CUDA graph
+    (``captured`` True) is kept by copies captured with it, so after each
+    replay they hold that replay's inputs and outputs.  The launches
+    themselves, and their counts, are the caller's."""
     kept = {k: [] for k in HELD}
     launch = {k: getattr(mod, attr) for k, (mod, attr, _) in HELD.items()}
 
@@ -3482,7 +3634,8 @@ def kept_launches():
         def run(*args, **kw):
             inputs = (_clone(args), {k: _clone(v) for k, v in kw.items()})
             out = launch[key](*args, **kw)
-            kept[key].append((*inputs, _clone(out)))
+            kept[key].append((*inputs, _clone(out),
+                              torch.cuda.is_current_stream_capturing()))
             return out
         return run
 
@@ -3501,7 +3654,7 @@ def hold_against_plain(kept, what):
     and prod, K2 the gradient relative to its largest, K3 every output
     bitwise.  Returns ({key: launches held}, {key: max abs error})."""
     err = dict(fwd=0., bwd=0., trace=0.)
-    for args, kw, (fid_k, prod_k) in kept['fwd']:
+    for args, kw, (fid_k, prod_k), _ in kept['fwd']:
         fid_p, prod_p = HELD['fwd'][2](*args, **kw)
         mismatch = (fid_k != fid_p).float().mean().item()
         dprod = (prod_k - prod_p).abs().max().item()
@@ -3509,13 +3662,13 @@ def hold_against_plain(kept, what):
                f'{what}: K1 against plain (face ids {mismatch:.3e}, '
                f'prod {dprod:.3e})')
         err['fwd'] = max(err['fwd'], dprod)
-    for args, kw, out_k in kept['bwd']:
+    for args, kw, out_k, _ in kept['bwd']:
         out_p = HELD['bwd'][2](*args, **kw)
         d = (out_k - out_p).abs().max().item()
         _check(d <= K2_REL_MAX * out_p.abs().max().item(),
                f'{what}: K2 against plain (max|d| {d:.3e})')
         err['bwd'] = max(err['bwd'], d)
-    for args, kw, out_k in kept['trace']:
+    for args, kw, out_k, _ in kept['trace']:
         out_p = HELD['trace'][2](*args, **kw)
         _check(_same_outputs(out_k, out_p), f'{what}: K3 against plain')
         err['trace'] = max(err['trace'], _max_t_err(out_k, out_p))
@@ -3594,13 +3747,15 @@ def pg_viewers(vertices, faces, dev):
 def pg_examples(dev, tmp):
     """The five examples' main() in-process on the card; K1, K2 and K3
     launches counted around them, each launch held against its kernel's
-    plain version on the inputs the example gave it.  Returns (launches,
-    max abs errors)."""
+    plain version on the inputs the example gave it (a launch in the DIB-R
+    example's CUDA graph on its last replay's).  Returns (launches, max
+    abs errors)."""
     for k in FU.LAUNCHES:
         FU.LAUNCHES[k] = 0
     _trace.LAUNCHES['trace'] = 0
     err = dict(fwd=0., bwd=0., trace=0.)
     n_held = dict(fwd=0, bwd=0, trace=0)
+    n_captured = dict(fwd=0, bwd=0, trace=0)
     for name, argv, last in PG_EXAMPLES:
         mod = importlib.import_module(f'kaolin_tpu_torch.examples.{name}')
         extra = (['--logdir', os.path.join(tmp, 'example_timelapse')]
@@ -3615,6 +3770,8 @@ def pg_examples(dev, tmp):
         held, e = hold_against_plain(kept, f'path G example {name}')
         err = {k: max(err[k], e[k]) for k in err}
         n_held = {k: n_held[k] + held[k] for k in n_held}
+        n_captured = {k: n_captured[k] + sum(e[3] for e in kept[k])
+                      for k in n_captured}
         text = out.getvalue()
         _check(last in text and result.device.type == torch.device(dev).type
                and bool(torch.isfinite(result.float()).all()),
@@ -3627,12 +3784,20 @@ def pg_examples(dev, tmp):
               f'first calls, with the recorder; not a rate)')
     launches = dict(fwd=FU.LAUNCHES['fwd'], bwd=FU.LAUNCHES['bwd'],
                     trace=_trace.LAUNCHES['trace'])
-    print(f'path G examples: kernel launches {launches}, every one held '
-          f'against plain; max abs err {err}')
+    # launches no recorder saw: the replays of captured launches
+    replayed = {k: launches[k] - (n_held[k] - n_captured[k])
+                for k in launches}
+    print(f'path G examples: kernel launches {launches}, of them replayed '
+          f'from CUDA graphs {replayed}; every eager launch held against '
+          f'plain, and each of the {n_captured} captured ones on its last '
+          f'replay\'s inputs; max abs err {err}')
     _check(launches['fwd'] > 0 and launches['bwd'] > 0
            and launches['trace'] > 0,
            'path G: the examples launch K1, K2 and K3')
-    _check(n_held == launches, 'path G: every example launch held')
+    _check(all(replayed[k] >= n_captured[k]
+               and (replayed[k] > 0) == (n_captured[k] > 0)
+               for k in launches),
+           'path G: every example launch held, eagerly or on its graph')
     return launches, err
 
 
@@ -4003,14 +4168,13 @@ def main():
     g_prod, k2_err = check_backward(scene, inputs, fid, prod)
     culling(scene, inputs, g_prod)
     phase('3: K2 against plain, culling')
-    launches, _ = train(scene)
-    _check(launches['fwd'] >= STEPS and launches['bwd'] >= STEPS,
-           'both kernels launched on every step')
+    launches, _, call, peak = train(scene)
     check_step_against_plain(make_scene(dev, **STEP0_SIZE))
-    phase('4: 5 Adam steps, step 0 against the CPU at '
-          f'{STEP0_SIZE["height"]}^2')
-    t = times(scene, inputs, g_prod, card)
-    phase('5: DIB-R times and profile')
+    phase('4: 5 Adam steps of the compiled step against eager, step 0 '
+          f'against the CPU at {STEP0_SIZE["height"]}^2')
+    t = times(scene, inputs, g_prod, card, call, peak)
+    del call
+    phase('5: DIB-R times (eager and compiled in turns) and profiles')
 
     fv = spc_mesh()
     spc_build(fv, dev)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  :func:`load` compiles
 it with ``nvcc`` for Hopper (``sm_90a``) into ``build/kaolin_tpu_torch/``
 at the root of the checkout, keyed by a hash of the sources, every header
-of ``csrc/`` (``*.cuh``, which the sources include) and the flags
-(:func:`build_key`), and opens the shared library with ``ctypes``.  Nothing there includes
-PyTorch's headers, so a build takes seconds, not minutes.
+of ``csrc/`` (``*.cuh`` and ``*.h``, which the sources include) and the
+flags (:func:`build_key`), and opens the shared library with ``ctypes``.
+Nothing there includes PyTorch's headers, so a build takes seconds, not
+minutes.
 
 :func:`load_module` builds ``csrc/<name>.cu`` with ``csrc/<name>_module.cpp``,
 Python entry points that include only PyTorch's tensor and Python-binding
@@ -80,10 +81,12 @@ def _module_flags():
 
 def build_key(sources, flags, libs=(), csrc=CSRC):
     """The 16 hex digits that name a build: a hash of the ``sources`` (in
-    ``csrc``), of every header ``csrc/*.cuh`` (by name and bytes, so an
-    edit to a header alone builds anew) and of the flags and libraries."""
+    ``csrc``), of every header ``csrc/*.cuh`` and ``csrc/*.h`` (by name and
+    bytes, so an edit to a header alone builds anew) and of the flags and
+    libraries."""
     h = hashlib.sha256()
-    for path in [csrc / s for s in sources] + sorted(csrc.glob('*.cuh')):
+    headers = sorted([*csrc.glob('*.cuh'), *csrc.glob('*.h')])
+    for path in [csrc / s for s in sources] + headers:
         h.update(path.name.encode() + b'\0' + path.read_bytes() + b'\0')
     h.update(' '.join(tuple(flags) + tuple(libs)).encode())
     return h.hexdigest()[:16]

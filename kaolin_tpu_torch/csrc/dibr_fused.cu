@@ -3,9 +3,10 @@
 // Built by kaolin_tpu_torch/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false
-// and called through ctypes from kaolin_tpu_torch/render/mesh/_fused.py,
-// which builds the inputs (build_face_tiles), allocates the outputs and the
-// backward's scratch, and holds the plain PyTorch version of each kernel.
+// with dibr_fused_module.cpp (its Python entry points, which allocate the
+// outputs and the backward's scratch) and called from
+// kaolin_tpu_torch/render/mesh/_fused.py, which builds the inputs
+// (build_face_tiles) and holds the plain PyTorch version of each kernel.
 // Kernels launch on the caller's stream, never synchronise and never
 // allocate; each entry point returns cudaGetLastError().
 //

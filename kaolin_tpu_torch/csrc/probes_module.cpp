@@ -15,15 +15,10 @@
 // RuntimeError with the cudaError, and PyTorch's errors (an allocation
 // that fails) pass through as PyTorch raises them.
 
-#include <Python.h>
+#include "ext.h"
 
-#include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
-#include <torch/csrc/autograd/python_variable.h>
-
-#include <climits>
-#include <cstdint>
 
 extern "C" {
 int probe_dyn_loop(const void* nbs, int nbs_stride, const void* x, void* out,
@@ -38,15 +33,6 @@ int probe_dummy(const void* x, void* out, int nsteps, int n, void* stream);
 }
 
 namespace {
-
-// args[k] as a tensor, or nullptr with a Python error set.
-const at::Tensor* tensor(PyObject* const* args, int k) {
-  if (!THPVariable_Check(args[k])) {
-    PyErr_Format(PyExc_TypeError, "argument %d: expected a tensor", k);
-    return nullptr;
-  }
-  return &THPVariable_Unpack(args[k]);
-}
 
 // The wrappers' test of one input: a contiguous, 16-byte aligned ``dtype``
 // tensor of ``ndim`` dims (any for -1, at least 1) on CUDA device ``dev``,
@@ -65,31 +51,6 @@ int row(const at::Tensor& t) {
   return nb ? (int)(t.numel() / nb) : 0;
 }
 
-bool args_ok(Py_ssize_t nargs, Py_ssize_t want, const char* entry) {
-  if (nargs == want) return true;
-  PyErr_Format(PyExc_TypeError, "%s takes %zd arguments, got %zd", entry,
-               want, nargs);
-  return false;
-}
-
-// args[k] as an int, or false with a Python error set.
-bool int_arg(PyObject* const* args, int k, int* v) {
-  const long x = PyLong_AsLong(args[k]);
-  if (x == -1 && PyErr_Occurred()) return false;
-  if (x < INT_MIN || x > INT_MAX) {
-    PyErr_Format(PyExc_OverflowError, "argument %d does not fit an int", k);
-    return false;
-  }
-  *v = (int)x;
-  return true;
-}
-
-// args[k] (a stream handle as an int) as a pointer, or false.
-bool stream_arg(PyObject* const* args, int k, void** v) {
-  *v = PyLong_AsVoidPtr(args[k]);
-  return !PyErr_Occurred();
-}
-
 PyObject* launched(int rc, const char* entry, at::Tensor&& out) {
   if (rc != 0) {
     PyErr_Format(PyExc_RuntimeError,
@@ -103,10 +64,11 @@ PyObject* launched(int rc, const char* entry, at::Tensor&& out) {
 PyObject* py_dyn_loop(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   void* stream;
-  if (!args_ok(nargs, 3, "dyn_loop") || !stream_arg(args, 2, &stream))
+  if (!ext::args_ok(nargs, 3, "dyn_loop") ||
+      !ext::stream_arg(args, 2, &stream))
     return nullptr;
-  const at::Tensor* nbs = tensor(args, 0);
-  const at::Tensor* x = tensor(args, 1);
+  const at::Tensor* nbs = ext::tensor(args, 0);
+  const at::Tensor* x = ext::tensor(args, 1);
   if (!nbs || !x) return nullptr;
   const auto dev = x->get_device();
   if (!ok(*x, at::kFloat, -1, dev) || !ok(*nbs, at::kInt, 2, dev) ||
@@ -135,11 +97,12 @@ bool rows_ok(const at::Tensor& ids, const at::Tensor& table,
 PyObject* py_row_sum(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   void* stream;
-  if (!args_ok(nargs, 4, "row_sum") || !stream_arg(args, 3, &stream))
+  if (!ext::args_ok(nargs, 4, "row_sum") ||
+      !ext::stream_arg(args, 3, &stream))
     return nullptr;
-  const at::Tensor* ids = tensor(args, 0);
-  const at::Tensor* table = tensor(args, 1);
-  const at::Tensor* x = tensor(args, 2);
+  const at::Tensor* ids = ext::tensor(args, 0);
+  const at::Tensor* table = ext::tensor(args, 1);
+  const at::Tensor* x = ext::tensor(args, 2);
   if (!ids || !table || !x) return nullptr;
   if (!rows_ok(*ids, *table, *x)) Py_RETURN_NONE;
   at::Tensor out = at::empty(x->sizes(), table->options());
@@ -155,12 +118,14 @@ PyObject* py_row_sum(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 PyObject* py_bag_sum(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   void* stream;
-  if (!args_ok(nargs, 5, "bag_sum") || !stream_arg(args, 4, &stream))
+  if (!ext::args_ok(nargs, 5, "bag_sum") ||
+      !ext::stream_arg(args, 4, &stream))
     return nullptr;
-  const at::Tensor* nbs = args[0] == Py_None ? nullptr : tensor(args, 0);
-  const at::Tensor* ids = tensor(args, 1);
-  const at::Tensor* table = tensor(args, 2);
-  const at::Tensor* x = tensor(args, 3);
+  const at::Tensor* nbs =
+      args[0] == Py_None ? nullptr : ext::tensor(args, 0);
+  const at::Tensor* ids = ext::tensor(args, 1);
+  const at::Tensor* table = ext::tensor(args, 2);
+  const at::Tensor* x = ext::tensor(args, 3);
   if ((!nbs && args[0] != Py_None) || !ids || !table || !x) return nullptr;
   if (!rows_ok(*ids, *table, *x) ||
       (nbs && (!ok(*nbs, at::kInt, 2, x->get_device()) ||
@@ -181,10 +146,10 @@ PyObject* py_shift(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   int op, s;
   void* stream;
-  if (!args_ok(nargs, 4, "shift") || !int_arg(args, 1, &op) ||
-      !int_arg(args, 2, &s) || !stream_arg(args, 3, &stream))
+  if (!ext::args_ok(nargs, 4, "shift") || !ext::int_arg(args, 1, &op) ||
+      !ext::int_arg(args, 2, &s) || !ext::stream_arg(args, 3, &stream))
     return nullptr;
-  const at::Tensor* x = tensor(args, 0);
+  const at::Tensor* x = ext::tensor(args, 0);
   if (!x) return nullptr;
   if (!ok(*x, at::kFloat, 3, x->get_device())) Py_RETURN_NONE;
   at::Tensor out = at::empty_like(*x);
@@ -199,9 +164,9 @@ PyObject* py_shift(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 PyObject* py_dummy(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   void* stream;
-  if (!args_ok(nargs, 2, "dummy") || !stream_arg(args, 1, &stream))
+  if (!ext::args_ok(nargs, 2, "dummy") || !ext::stream_arg(args, 1, &stream))
     return nullptr;
-  const at::Tensor* x = tensor(args, 0);
+  const at::Tensor* x = ext::tensor(args, 0);
   if (!x) return nullptr;
   if (!ok(*x, at::kFloat, -1, x->get_device()) || row(*x) % 4)
     Py_RETURN_NONE;

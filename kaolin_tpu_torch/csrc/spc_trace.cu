@@ -4,7 +4,8 @@
 // _trace_kernel.  Built by kaolin_tpu_torch/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false
-// and called through ctypes from kaolin_tpu_torch/render/spc/_trace.py,
+// with spc_trace_module.cpp (its Python entry points) and called from
+// kaolin_tpu_torch/render/spc/_trace.py,
 // which culls the blocks, allocates the outputs (filled with inf / -1 / 0)
 // and holds the plain PyTorch version.  The kernel launches on the
 // caller's stream, never synchronises and never allocates; the entry point

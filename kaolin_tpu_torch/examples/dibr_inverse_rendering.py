@@ -8,7 +8,10 @@ Usage::
 
 Without ``--mesh`` the mesh is a generated UV sphere (``uv_sphere(40,
 21)``, 1,600 faces) written as OBJ + MTL into a temporary directory and
-read back through the OBJ importer.
+read back through the OBJ importer.  The training step is
+``models.inverse_render.compiled_step``, as the JAX script jits its step:
+one CUDA graph replayed per step on the card, the same step eagerly on
+the CPU.
 """
 
 import argparse
@@ -73,7 +76,12 @@ def main(argv=None):
                         generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         params.vertices += 0.05 * noise.to(device)
-    optimizer = torch.optim.Adam(params.parameters(), lr=args.lr)
+    # on the card the step is one CUDA graph, Adam's update in it
+    optimizer = torch.optim.Adam(params.parameters(), lr=args.lr,
+                                 capturable=device.type == 'cuda')
+    train_step = M.compiled_step(params, views, faces, face_uvs,
+                                 target_images, target_masks, args.height,
+                                 args.width, optimizer, backend=args.backend)
 
     timelapse = None
     if args.logdir:
@@ -82,14 +90,7 @@ def main(argv=None):
 
     for step in range(args.steps):
         t0 = time.time()
-        sel = M.compute_selection(params, views, faces, args.height,
-                                  args.width, backend=args.backend)
-        optimizer.zero_grad()
-        loss = M.render_loss(params, views, faces, face_uvs, target_images,
-                             target_masks, args.height, args.width,
-                             backend=args.backend, selection=sel)
-        loss.backward()
-        optimizer.step()
+        loss = train_step(views, target_images, target_masks)
         print(f'step {step:3d}  loss {loss.item():.5f}  '
               f'({time.time() - t0:.2f}s)')
         if timelapse is not None and step % 5 == 0:

@@ -5,9 +5,12 @@ Port of ``kaolin_tpu/models/inverse_render.py``: optimizable parameters
 render step.  A training step is :func:`compute_selection` (the
 non-differentiable selection, under ``no_grad``: the fused engine's, or
 with ``backend='jnp'`` the brute-force z-buffer and the soft mask's
-k-buffer) followed by :func:`render_loss` and ``backward()``.
+k-buffer) followed by :func:`render_loss`, ``backward()`` and the
+optimizer's step.  :func:`compiled_step` makes that step one CUDA graph on
+the card, as the JAX package's callers jit theirs.
 """
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -20,11 +23,15 @@ from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.metrics.render import mask_iou
 from kaolin_tpu_torch.render import camera as camera_fns
 from kaolin_tpu_torch.render import mesh as mesh_render
+from kaolin_tpu_torch.render.mesh import _fused
 from kaolin_tpu_torch.render.mesh.rasterization import _resolve_backend
 
 __all__ = ['InverseRender', 'InverseRenderParams', 'CameraViews',
            'make_views', 'render_views', 'render_loss', 'init_params',
-           'compute_selection', 'from_jax_params']
+           'compute_selection', 'from_jax_params', 'compiled_step']
+
+# eager steps before a capture: PyTorch's whole-network capture recipe
+_WARMUP = 3
 
 
 class InverseRenderParams(NamedTuple):
@@ -213,3 +220,152 @@ def render_loss(params, views, faces, face_uvs, target_images, target_masks,
     image_loss = torch.mean(torch.abs(images - target_images))
     mask_loss = mask_iou(soft_mask, target_masks)
     return image_loss + mask_loss
+
+
+def compiled_step(model, views, faces, face_uvs, target_images, target_masks,
+                  height, width, optimizer, backend='auto', knum=30):
+    """One whole training step as one program: :func:`compute_selection`
+    -> :func:`render_loss` -> ``backward()`` -> ``optimizer.step()``, the
+    port's counterpart of the JAX callers'
+    ``jax.jit(jax.value_and_grad(render_loss))`` and optax update.
+
+    Returns a callable ``step(views, target_images, target_masks)`` that
+    takes one step of ``model`` toward the targets seen from ``views`` and
+    returns the loss as a tensor on the model's device (the loss of the
+    parameters before the update; ``model``'s gradients are the step's
+    after it).  Like a jitted function it is bound to the shapes, types
+    and devices of the ``views`` and targets it was built with, and raises
+    on others; ``faces`` and ``face_uvs`` are read in place.  Its
+    ``selection`` is the last step's selection (:func:`compute_selection`)
+    and its ``graph`` the CUDA graph it replays (None on the CPU).
+
+    On a CUDA model the step is captured once in a CUDA graph (PyTorch's
+    whole-network recipe) and each call replays it: the inputs are copied
+    into the graph's own, and nothing is read back to the host.  The
+    optimizer must be built with ``capturable=True`` (its update is in the
+    graph), and a capture that fails raises: there is no eager fallback.
+    The graph reads and writes the parameters and the optimizer's state in
+    place, so a call raises once either was replaced (for example by
+    ``load_state_dict``: load before building, or copy into the state).
+    Each replay adds the graph's kernel launches to ``_fused.LAUNCHES``.
+
+    On a CPU model each call runs the same step eagerly.  On either
+    device, building takes ``_WARMUP`` eager steps and then puts the
+    parameters and the optimizer's state back as they were.
+    """
+    return _CompiledStep(model, views, faces, face_uvs, target_images,
+                         target_masks, height, width, optimizer,
+                         _resolve_backend(backend), knum)
+
+
+def _signature(tensors):
+    return [(tuple(t.shape), t.dtype, t.device) for t in tensors]
+
+
+@contextlib.contextmanager
+def _state_kept(params, optimizer):
+    """Within the block, steps may change ``params`` and the optimizer's
+    state; after it both hold what they held before, in the same tensors.
+    State that the block created is zeroed, which for Adam (whose state is
+    tensors only) is a fresh state."""
+    saved = [p.detach().clone() for p in params]
+    state = {p: {k: v.clone() for k, v in optimizer.state[p].items()}
+             for p in params if p in optimizer.state}
+    yield
+    with torch.no_grad():
+        for p, v in zip(params, saved):
+            p.copy_(v)
+        for p in params:
+            for k, v in optimizer.state.get(p, {}).items():
+                if k in state.get(p, {}):
+                    v.copy_(state[p][k])
+                else:
+                    v.zero_()
+
+
+class _CompiledStep:
+    """What :func:`compiled_step` returns."""
+
+    def __init__(self, model, views, faces, face_uvs, target_images,
+                 target_masks, height, width, optimizer, backend, knum):
+        self.model, self.optimizer = model, optimizer
+        self._args = (faces, face_uvs, height, width, backend, knum)
+        self._params = list(model.parameters())
+        inputs = (*views, target_images, target_masks)
+        self._signature = _signature(inputs)
+        self.selection = self.graph = None
+        side = None         # the warm-up's stream (None: the CPU's)
+        if model.vertices.is_cuda:
+            if not all(g.get('capturable') for g in optimizer.param_groups):
+                raise ValueError(
+                    'compiled_step captures the optimizer\'s update in a '
+                    'CUDA graph: build the optimizer with capturable=True')
+            # the graph's inputs, which each call copies into
+            inputs = tuple(t.clone() for t in inputs)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), _state_kept(self._params, optimizer):
+            for _ in range(_WARMUP):
+                self._eager(inputs)
+        if side is None:
+            return
+        torch.cuda.current_stream().wait_stream(side)
+        for p in self._params:
+            p.grad = None
+        counts = dict(_fused.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._loss, self.selection = self._run(inputs)
+        # a capture launches nothing: its launches are the replays'
+        self._launches = {k: _fused.LAUNCHES[k] - counts[k] for k in counts}
+        _fused.LAUNCHES.update(counts)
+        self._inputs = inputs
+        self._grads = [p.grad for p in self._params]
+        self._bound = self._bindings()
+
+    def _run(self, inputs):
+        """selection -> loss -> backward -> optimizer step on ``inputs``
+        (the views' three tensors, the target images and masks)."""
+        faces, face_uvs, height, width, backend, knum = self._args
+        views = CameraViews(*inputs[:3])
+        sel = compute_selection(self.model, views, faces, height, width,
+                                backend, knum=knum)
+        loss = render_loss(self.model, views, faces, face_uvs, inputs[3],
+                           inputs[4], height, width, backend=backend,
+                           selection=sel, knum=knum)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), sel
+
+    def _eager(self, inputs):
+        for p in self._params:
+            p.grad = None
+        loss, self.selection = self._run(inputs)
+        return loss
+
+    def _bindings(self):
+        """Where the parameters and the optimizer's state tensors are."""
+        return [(p.data_ptr(), *((k, v.data_ptr()) for k, v in sorted(
+            self.optimizer.state.get(p, {}).items()))) for p in self._params]
+
+    def __call__(self, views, target_images, target_masks):
+        inputs = (*views, target_images, target_masks)
+        if _signature(inputs) != self._signature:
+            raise ValueError(
+                f'compiled_step was built for views and targets '
+                f'{self._signature}, got {_signature(inputs)}')
+        if self.graph is None:
+            return self._eager(inputs)
+        if self._bindings() != self._bound:
+            raise RuntimeError(
+                'compiled_step: the parameters or the optimizer\'s state '
+                'were replaced after the step was captured (load a state '
+                'before building the step, or copy into it in place)')
+        for dst, src in zip(self._inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        for k, n in self._launches.items():
+            _fused.LAUNCHES[k] += n
+        for p, g in zip(self._params, self._grads):
+            p.grad = g
+        return self._loss.clone()

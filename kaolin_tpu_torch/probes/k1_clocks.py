@@ -131,17 +131,25 @@ def dibr_inputs(device, height=512, views=4, sphere=(100, 51)):
     return vt.float().contiguous(), tr, cbb.float().contiguous(), height
 
 
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError(f'{what} failed: cudaError {rc}')
+
+
 def _launch(lib, vt, tr, cbb, H):
+    """The instrumented K1 through its C entry (ctypes) on the current
+    stream, outputs allocated here."""
     B, nC = vt.shape[:2]
     nI, nJ, TW = FU._tile_dims(*FU._padded_dims(H, H))
     ax, bx, ay, by = FU._pixel_affine(H, H, MULT)
     fid = torch.empty((B, H, H), dtype=torch.int32, device=vt.device)
     prod = torch.empty((B, H, H), dtype=torch.float32, device=vt.device)
+    ptr = [ctypes.c_void_p(t.data_ptr()) for t in (tr, cbb, vt, fid, prod)]
+    stream = _cuda.stream_getter()(vt.get_device())
     rc = lib.dibr_fused_forward(
-        FU._ptr(tr), FU._ptr(cbb), FU._ptr(vt), FU._ptr(fid), FU._ptr(prod),
-        B, nC, nI * nJ, H, H, nJ, TW, ax, bx, ay, by, EPS,
-        SIGMAINV / MULT ** 2, 4. * MULT ** 2, 1, FU._stream(vt.device))
-    FU._raise_on(rc, 'instrumented fused_forward_kernel')
+        *ptr, B, nC, nI * nJ, H, H, nJ, TW, ax, bx, ay, by, EPS,
+        SIGMAINV / MULT ** 2, 4. * MULT ** 2, 1, ctypes.c_void_p(stream))
+    _raise_on(rc, 'instrumented fused_forward_kernel launch')
     return fid, prod
 
 
@@ -177,7 +185,7 @@ def run(device):
     nSI = -(-FU._padded_dims(H, H)[0] // FU._SUB)
     n = B * nSI * (FU._padded_dims(H, H)[1] // FU._SUB)
     rec = np.zeros((n, NREC), np.int64)
-    FU._raise_on(lib.k1_clock_read(rec.ctypes.data, n), 'k1_clock_read')
+    _raise_on(lib.k1_clock_read(rec.ctypes.data, n), 'k1_clock_read')
     cyc, lst, rng, sm = (rec[:, k].astype(np.float64) for k in range(4))
     t0 = rec[:, 4] - rec[:, 4].min()
     t1 = rec[:, 5] - rec[:, 4].min()

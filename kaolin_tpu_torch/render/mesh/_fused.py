@@ -29,10 +29,13 @@ Each kernel has a plain PyTorch version of the same function beside it
 the same chunk ranges and bbox skip.  The wrappers :func:`_fused_forward`
 and :func:`_fused_backward` run the plain version for tensors on the CPU
 and the kernel for tensors on a CUDA device; there is no fallback between
-the two.  ``LAUNCHES`` counts kernel launches.
+the two.  A kernel is launched through the extension module
+``csrc/dibr_fused_module.cpp``, which tests the inputs, allocates the
+outputs and launches in C++ on the stream it is given.  ``LAUNCHES`` counts
+kernel launches: a wrapper adds one where it launches, and a replayed CUDA
+graph adds what it holds (``models/inverse_render.py::compiled_step``).
 """
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -381,58 +384,46 @@ def _check(name, t, dtype, shape, device):
             f'(contiguous={t.is_contiguous()})')
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+_ext = _stream = None       # the extension module, the stream getter
 
 
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _bind():
+    global _ext, _stream
+    if _ext is None:
+        from kaolin_tpu_torch import _cuda
+        _stream = _cuda.stream_getter()
+        _ext = _cuda.load_module('dibr_fused')
+    return _ext
 
 
-def _lib():
-    from kaolin_tpu_torch import _cuda
-    lib = _cuda.load('dibr_fused')
-    if lib.dibr_fused_forward.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dibr_fused_forward.argtypes = [
-            p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, f, f, f, f, i, p]
-        lib.dibr_fused_forward.restype = ctypes.c_int
-        lib.dibr_fused_backward.argtypes = [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, f, f, f,
-            p]
-        lib.dibr_fused_backward.restype = ctypes.c_int
-    return lib
-
-
-def _raise_on(rc, what):
-    if rc != 0:
-        raise RuntimeError(f'{what} failed to launch: cudaError {rc}')
+def _refused(tests):
+    """Raise for inputs the extension refused: the first of ``tests``
+    ((name, tensor, dtype, shape, device)) that fails :func:`_check`, else
+    the size the kernels index with ints."""
+    for test in tests:
+        _check(*test)
+    raise ValueError('fused kernels index with ints: every input and output '
+                     'must hold fewer than 2^31 elements')
 
 
 def _fused_forward_cuda(vt, tile_ranges, chunk_bbox, height, width,
                         multiplier, eps, sigmainv, with_softmask):
     """Launch the forward kernel; same contract as the plain version."""
-    device = vt.device
-    B, nC = vt.shape[:2]
-    hp, wp = _padded_dims(height, width)
-    nI, nJ, TW = _tile_dims(hp, wp)
-    T = nI * nJ
-    _check('vt', vt, torch.float32, (B, nC, FC, _NCOL), device)
-    _check('tile_ranges', tile_ranges, torch.int32, (B, T, 2), device)
-    _check('chunk_bbox', chunk_bbox, torch.float32, (B, nC, 4), device)
-    axp, bxp, ayp, byp = _pixel_affine(height, width, multiplier)
-    fid = torch.empty((B, height, width), dtype=torch.int32, device=device)
-    prod = torch.empty((B, height, width), dtype=torch.float32,
-                       device=device)
-    rc = _lib().dibr_fused_forward(
-        _ptr(tile_ranges), _ptr(chunk_bbox), _ptr(vt), _ptr(fid), _ptr(prod),
-        B, nC, T, height, width, nJ, TW, axp, bxp, ayp, byp, float(eps),
-        float(sigmainv) / float(multiplier) ** 2,
-        4. * float(multiplier) ** 2, int(bool(with_softmask)),
-        _stream(device))
-    _raise_on(rc, 'fused_forward_kernel')
+    nI, nJ, TW = _tile_dims(*_padded_dims(height, width))
+    out = (_ext or _bind()).forward(
+        vt, tile_ranges, chunk_bbox, height, width, nI * nJ, nJ, TW,
+        *_pixel_affine(height, width, multiplier), float(eps),
+        float(sigmainv) / float(multiplier) ** 2, 4. * float(multiplier) ** 2,
+        int(bool(with_softmask)), _stream(vt.get_device()))
+    if out is None:
+        B, nC = vt.shape[:2]
+        _refused((('vt', vt, torch.float32, (B, nC, FC, _NCOL), vt.device),
+                  ('tile_ranges', tile_ranges, torch.int32, (B, nI * nJ, 2),
+                   vt.device),
+                  ('chunk_bbox', chunk_bbox, torch.float32, (B, nC, 4),
+                   vt.device)))
     LAUNCHES['fwd'] += 1
-    return fid, prod
+    return out
 
 
 def _fused_forward(vt, tile_ranges, chunk_bbox, height, width, multiplier,
@@ -536,26 +527,22 @@ def _fused_backward_torch(vt, chunk_tranges, chunk_bbox, g_prod, height,
 def _fused_backward_cuda(vt, chunk_tranges, chunk_bbox, g_prod, height,
                          width, multiplier, sigmainv):
     """Launch the backward kernel; same contract as the plain version."""
-    device = vt.device
-    B, nC = vt.shape[:2]
     nI, nJ, TW = _tile_dims(*_padded_dims(height, width))
-    _check('vt', vt, torch.float32, (B, nC, FC, _NCOL), device)
-    _check('chunk_tranges', chunk_tranges, torch.int32, (B, nC, 2), device)
-    _check('chunk_bbox', chunk_bbox, torch.float32, (B, nC, 4), device)
-    _check('g_prod', g_prod, torch.float32, (B, height, width), device)
-    axp, bxp, ayp, byp = _pixel_affine(height, width, multiplier)
-    active = torch.empty((B, nI * nJ * (TW // _unit_width(TW))),
-                         dtype=torch.int32, device=device)
-    partial = torch.empty((B, nC, _BWD_SLICES, FC, 6), dtype=torch.float32,
-                          device=device)
-    out = torch.empty((B, nC * FC, 6), dtype=torch.float32, device=device)
-    rc = _lib().dibr_fused_backward(
-        _ptr(chunk_tranges), _ptr(chunk_bbox), _ptr(vt), _ptr(g_prod),
-        _ptr(active), _ptr(partial), _ptr(out), B, nC, _BWD_SLICES,
-        nI * nJ, height, width, nJ, TW, axp, bxp, ayp, byp,
-        float(sigmainv) / float(multiplier) ** 2,
-        4. * float(multiplier) ** 2, _stream(device))
-    _raise_on(rc, 'fused_backward_kernel')
+    out = (_ext or _bind()).backward(
+        vt, chunk_tranges, chunk_bbox, g_prod, height, width, nI * nJ, nJ, TW,
+        _BWD_SLICES, nI * nJ * (TW // _unit_width(TW)),
+        *_pixel_affine(height, width, multiplier),
+        float(sigmainv) / float(multiplier) ** 2, 4. * float(multiplier) ** 2,
+        _stream(vt.get_device()))
+    if out is None:
+        B, nC = vt.shape[:2]
+        _refused((('vt', vt, torch.float32, (B, nC, FC, _NCOL), vt.device),
+                  ('chunk_tranges', chunk_tranges, torch.int32, (B, nC, 2),
+                   vt.device),
+                  ('chunk_bbox', chunk_bbox, torch.float32, (B, nC, 4),
+                   vt.device),
+                  ('g_prod', g_prod, torch.float32, (B, height, width),
+                   vt.device)))
     LAUNCHES['bwd'] += 1
     return out
 

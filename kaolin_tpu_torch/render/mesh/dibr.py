@@ -168,8 +168,11 @@ class _SoftMaskEpilogue(torch.autograd.Function):
     prod_{j != k}(1 - p_j)`` from exact exclusive cumprods (no ``(1 -
     allprob) / (1 - p_k)`` division) and accumulates the six coordinate
     gradients with one ``index_add_``.  The padded (-1) slots carry zero
-    gradient and are left out of that scatter: they all gather face 0, and
-    on the card the adds of millions of zero rows to one row run serially.
+    gradient.  They all gather face 0, and on the card the adds of
+    millions of zero rows to one row run serially, so each adds its zero
+    to a row of its own (its position modulo B * F) instead: leaving them
+    out by a boolean mask would wait for the card, which a CUDA graph of
+    the step cannot.  A zero added changes no sum.
     """
 
     @staticmethod
@@ -224,9 +227,11 @@ class _SoftMaskEpilogue(torch.autograd.Function):
 
         live = (kbuf >= 0).reshape(-1)
         rows = torch.stack([c.reshape(-1) for c in comp], dim=-1)  # (N, 6)
+        spread = torch.arange(live.numel(), device=live.device) % (B * F)
         dfvi = torch.zeros((B * F, 6), dtype=fvi_scaled.dtype,
                            device=fvi_scaled.device)
-        dfvi.index_add_(0, gid.reshape(-1)[live], rows[live])
+        dfvi.index_add_(0, torch.where(live, gid.reshape(-1), spread),
+                        torch.where(live[:, None], rows, 0.))
         return dfvi.reshape(B, F, 3, 2), None, None, None, None, None, None
 
 

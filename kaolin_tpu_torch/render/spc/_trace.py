@@ -15,8 +15,9 @@ voxel of the block's candidate cells and writes a per-ray k-buffer:
 
 Rows of blocks that are not active keep those defaults.  CPU tensors run
 :func:`_trace_torch`, the plain PyTorch version; CUDA tensors launch
-``spc_trace_kernel`` (``csrc/spc_trace.cu``) or raise.  ``LAUNCHES`` counts
-kernel launches.
+``spc_trace_kernel`` (``csrc/spc_trace.cu``, through the extension module
+``csrc/spc_trace_module.cpp``, which tests the inputs and launches in C++)
+or raise.  ``LAUNCHES`` counts kernel launches.
 
 The kernel, in short (its source says more): one warp per active block,
 one ray per lane, warps that share nothing.  The warp stages a cell row in
@@ -35,8 +36,6 @@ K3's sort), the port of ``scripts/probe_r5_kbisect.py::staged_kernel``; it
 measures what each part of K3 costs.  Its plain version is
 :func:`_trace_staged_torch`.
 """
-
-import ctypes
 
 import torch
 
@@ -160,16 +159,16 @@ def _smem_bytes(kbuf, with_exit):
     return _THREADS // 32 * ((max(unit, sort) + 15) // 16 * 16)
 
 
-def _lib():
-    """The built ``csrc/spc_trace.cu``, its C function typed."""
-    from kaolin_tpu_torch import _cuda
-    lib = _cuda.load('spc_trace')
-    if lib.spc_trace.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.spc_trace.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f,
-                                  i, i, i, p]
-        lib.spc_trace.restype = ctypes.c_int
-    return lib
+_ext = _stream = None       # the extension module, the stream getter
+
+
+def _bind():
+    global _ext, _stream
+    if _ext is None:
+        from kaolin_tpu_torch import _cuda
+        _stream = _cuda.stream_getter()
+        _ext = _cuda.load_module('spc_trace')
+    return _ext
 
 
 def _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
@@ -178,21 +177,7 @@ def _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
     outputs ``out`` = (t_near, t_far, pidx, count), as :func:`_outputs`
     makes them, and add one to ``LAUNCHES[counter]``; rows of blocks not in
     ``block_ids`` are not touched."""
-    device = rays.device
-    nA, rt = rays.shape[:2]
-    cw = cell_rows.shape[2]
-    ckmax = block_cells.shape[1]
-    _check('rays', rays, torch.float32, (nA, rt, 6), device)
-    _check('cell_rows', cell_rows, torch.int32,
-           (cell_rows.shape[0], 4, cw), device)
-    _check('block_cells', block_cells, torch.int32, (nA, ckmax), device)
-    _check('nb', nb, torch.int32, (nA,), device)
-    _check('block_ids', block_ids, torch.int64, (nA,), device)
-    nB = out[3].shape[0]
-    for name, t, dtype in zip(('t_near', 't_far', 'pidx'), out[:3],
-                              (torch.float32, torch.float32, torch.int32)):
-        _check(name, t, dtype, (nB, rt, kbuf), device)
-    _check('count', out[3], torch.int32, (nB, rt), device)
+    rt = rays.shape[1]
     if stage not in STAGES:
         raise ValueError(f'stage must be one of {STAGES}, got {stage}')
     smem = _smem_bytes(kbuf, with_exit)
@@ -203,18 +188,37 @@ def _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
             f'{_MAX_SMEM} B of shared memory (per warp a staged unit or a '
             f'sort buffer of kbuf entries); got rays_per_tile={rt}, '
             f'kbuf={kbuf} ({smem} B)')
-    if nA == 0:
-        return out
-    ptr = [ctypes.c_void_p(t.data_ptr()) for t in (
-        rays, cell_rows, block_cells, nb, block_ids, *out)]
-    args = [*ptr, nA, rt, cw, ckmax, kbuf, float(2. * half),
-            int(bool(with_exit)), int(pidx_offset)]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-    rc = _lib().spc_trace(*args, int(stage), stream)
-    if rc != 0:
-        raise RuntimeError(f'spc_trace_kernel failed to launch: cudaError {rc}')
-    LAUNCHES[counter] += 1
+    launched = (_ext or _bind()).trace(
+        rays, cell_rows, block_cells, nb, block_ids, *out, int(kbuf),
+        float(2. * half), int(bool(with_exit)), int(pidx_offset), int(stage),
+        _stream(rays.get_device()))
+    if launched is None:
+        _refused(rays, cell_rows, block_cells, nb, block_ids, kbuf, out)
+    if launched:
+        LAUNCHES[counter] += 1
     return out
+
+
+def _refused(rays, cell_rows, block_cells, nb, block_ids, kbuf, out):
+    """Raise for inputs the extension refused: the first that fails
+    :func:`_check`, else the size the kernel indexes with ints."""
+    device = rays.device
+    nA, rt = rays.shape[:2]
+    cw = cell_rows.shape[2]
+    _check('rays', rays, torch.float32, (nA, rt, 6), device)
+    _check('cell_rows', cell_rows, torch.int32,
+           (cell_rows.shape[0], 4, cw), device)
+    _check('block_cells', block_cells, torch.int32,
+           (nA, block_cells.shape[1]), device)
+    _check('nb', nb, torch.int32, (nA,), device)
+    _check('block_ids', block_ids, torch.int64, (nA,), device)
+    nB = out[3].shape[0]
+    for name, t, dtype in zip(('t_near', 't_far', 'pidx'), out[:3],
+                              (torch.float32, torch.float32, torch.int32)):
+        _check(name, t, dtype, (nB, rt, kbuf), device)
+    _check('count', out[3], torch.int32, (nB, rt), device)
+    raise ValueError('spc_trace_kernel indexes with ints: every input and '
+                     'output must hold fewer than 2^31 elements')
 
 
 def _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,

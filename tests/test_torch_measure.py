@@ -57,8 +57,8 @@ def _csrc(tmp_path):
     return csrc
 
 
-@pytest.mark.parametrize('edit', ['header', 'new header', 'source', 'flags',
-                                  'libs'])
+@pytest.mark.parametrize('edit', ['header', 'new header', 'module header',
+                                  'source', 'flags', 'libs'])
 def test_build_key_changes_with_what_is_built(tmp_path, edit):
     csrc = _csrc(tmp_path)
     args = (['a.cu', 'a_module.cpp'], _cuda.NVCC_FLAGS, ('-lc10',))
@@ -68,6 +68,8 @@ def test_build_key_changes_with_what_is_built(tmp_path, edit):
         (csrc / 'ring.cuh').write_text('#pragma once\nconstexpr int S = 8;\n')
     elif edit == 'new header':
         (csrc / 'other.cuh').write_text('#pragma once\n')
+    elif edit == 'module header':
+        (csrc / 'ext.h').write_text('#pragma once\n')
     elif edit == 'source':
         (csrc / 'a.cu').write_text('#include "ring.cuh"\nint f() { return 2; }\n')
     elif edit == 'flags':
@@ -87,3 +89,4 @@ def test_build_key_ignores_other_files(tmp_path):
     (csrc / 'notes.txt').write_text('x\n')
     assert _cuda.build_key(['a.cu'], _cuda.NVCC_FLAGS, csrc=csrc) == before
     assert (_cuda.CSRC / 'tma.cuh').exists()
+    assert (_cuda.CSRC / 'ext.h').exists()

@@ -5,8 +5,10 @@ The DIB-R fit of ``examples/dibr_inverse_rendering.py`` with ``--logdir``:
 steps from the same perturbed start toward the same targets, a Timelapse
 of the mesh and of a point cloud (shared numpy draws on the faces) at the
 start of every step, a checkpoint after step 1 that is loaded back and
-resumed; then a MISE extraction (``init_res=8``, 2 steps) of the fitted
-mesh with ``check_sign(use_hash=True)`` as the occupancy.
+resumed through ``compiled_step`` built on the loaded state (its build's
+warm-up steps put that state back bit for bit); then a MISE extraction
+(``init_res=8``, 2 steps) of the fitted mesh with
+``check_sign(use_hash=True)`` as the occupancy.
 
 Limits: the fitted vertices within 2e-5 of the JAX loop's (Adam at lr 5e-3
 moves them by up to 1.5e-2; the two sides' gradients agree to 1e-4 of
@@ -158,7 +160,13 @@ def run_torch(sc, images, masks, logdir, ckdir):
             resumed = dict(state=copy.deepcopy(state),
                            back=copy.deepcopy(back), npz=npz, twin=twin,
                            twin_opt=twin_opt)
-            _torch_step(twin, twin_opt, views, sc, images, masks)
+            step_fn = MT.compiled_step(
+                twin, views, torch.as_tensor(sc['faces']),
+                torch.as_tensor(sc['face_uvs']), images, masks, H, H,
+                twin_opt, backend='jnp', knum=KNUM)
+            resumed['built'] = copy.deepcopy(twin_opt.state_dict())
+            resumed['built_params'] = copy.deepcopy(twin.as_params())
+            step_fn(views, images, masks)
     return model, losses, resumed
 
 
@@ -192,9 +200,15 @@ def test_checkpoint_and_resume(path_f):
     for a, b in zip(r['state']['params'], r['npz']):
         assert torch.equal(a.detach(), b)
     st, bk = r['state']['opt']['state'], r['back']['opt']['state']
+    built = r['built']['state']
     for i in st:
         for k in ('step', 'exp_avg', 'exp_avg_sq'):
             assert torch.equal(st[i][k], bk[i][k])
+            # the compiled step's state, after its build, is the loaded one
+            assert torch.equal(built[i][k], bk[i][k])
+    assert built[0]['step'].item() == SAVE_AFTER + 1
+    for a, b in zip(r['built_params'], r['back']['params']):
+        assert torch.equal(a.detach(), b)
     # the loop took one step after the save (STEPS == SAVE_AFTER + 2), the
     # twin one step from the restored state
     for a, b in zip(path_f['model'].parameters(), r['twin'].parameters()):
