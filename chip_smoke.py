@@ -17,13 +17,21 @@ SH-lit render -> image L1 + mask IoU loss -> backward -> Adam) at 512^2,
    both kernels cull to (K1's evaluated (pixel, face) pairs beside those of
    one CTA per tile walking whole chunks, its face lists per sub-tile, K2's
    sub-tiles with a non-zero g*prod), counted in torch from their rules;
+   the epilogue's kernels E1-E3 (``csrc/epilogue.cu``: the bilinear
+   texture sample, its backward, the face-row scatter of ``gather_rows``'
+   backward) on one eager step's own inputs against their plain versions,
+   each run again for the same bits, two steps' gradients compared bit for
+   bit, their times by both timers in turns with ``grid_sample``,
+   ``grid_sampler_2d_backward`` and ``index_add_``, and their bounds;
 4. 5 Adam steps of the compiled step (``models.inverse_render.
-   compiled_step``: one CUDA graph replayed a step, K1 and K2 in it)
-   against 5 eager steps from the same parameters (the first replay's
-   face ids, soft-mask product and loss bit for bit, its gradients within
-   1e-5 of their largest, every loss within step 0's limit), K1 and K2 as
-   captured held against their plain versions on the graph's inputs, one
-   launch of each counted per replay; then step 0's loss and gradients at
+   compiled_step``: one CUDA graph replayed a step, K1, K2 and E1-E3 in
+   it) against 5 eager steps from the same parameters (the first replay's
+   face ids, soft-mask product, loss and gradients bit for bit, every loss
+   within step 0's limit; the 'jnp' backend's gradients within 1e-5 of
+   their largest), K1, K2 and
+   E1-E3 as captured held against their plain versions on the graph's
+   inputs, one launch of each counted per replay; then step 0's loss and
+   gradients at
    128^2 and one view on the card against the same step on the CPU, where
    the wrappers run the plain versions (phases 2-3 hold the kernels
    against their plain versions at full size);
@@ -31,7 +39,7 @@ SH-lit render -> image L1 + mask IoU loss -> backward -> Adam) at 512^2,
    step in turns, of the compiled step's graph alone, and of each kernel
    beside its plain version; both steps on the card's timeline
    (``torch.profiler``): kernels per step, device busy and idle share, the
-   largest kernels; their peak memory.
+   largest kernels (none of ``grid_sample``'s left); their peak memory.
 
 The SPC pipeline of BASELINE config #3 (mesh -> level-10 octree -> coherent
 trace of 1,048,576 camera rays -> per-ray opacity), on the same 10,000-face
@@ -178,8 +186,9 @@ checkpoints around the DIB-R cell (plain PyTorch, host C++ and K1/K2):
     at iterations 0, 5, 10 and 15, the state at step 10 saved with
     ``utils.checkpoint.save`` and ``save_npz``, loaded back bit-equal, and
     step 10 from the loaded state against step 10 in memory (loss and
-    gradients within step 0's limits); the loop on the card's timeline
-    (idle share); ``TimelapseParser`` and the last sample read back bit for
+    gradients within step 0's limits); step 0's E1-E3 launches against
+    their plain versions; the loop on the card's timeline (idle share);
+    ``TimelapseParser`` and the last sample read back bit for
     bit; ``sdf_to_voxelgrids`` (MISE 32 -> 257^3) of the fitted mesh with
     ``check_sign(use_hash=True)`` as occupancy, on the card and on the CPU
     (equal), the hash build, queries and device test timed level by level,
@@ -207,14 +216,15 @@ in the SPC example):
     fitting a sphere to model 0's silhouettes (soft mask through K1 and
     K2, ``mask_iou``) and depths (L1), a ``Timelapse`` of the mesh and of
     10,000 samples every 5 steps; K1 and K2 against their plain versions
-    on the first step's inputs, step 0 at 128^2 against the CPU; the
+    on the first step's inputs, step 0's E3 launch against plain, step 0
+    at 128^2 against the CPU; the
     Timelapse through ``StreamingGeometryHelper`` (every message decoded
     bit-equal to what was logged); ``IpyTurntableVisualizer`` and
     ``IpyFirstPersonVisualizer`` frames of the fitted mesh through K1 after
     8 rotate / zoom events and 4 moves, the first frame's K1 launch held
     against plain; the five examples' ``main([...])`` on the card at
-    ``tests/test_examples.py``'s sizes, every K1, K2 and K3 launch they
-    make held against its plain version on the inputs it was given.
+    ``tests/test_examples.py``'s sizes, every K1, K2, K3 and E1-E3 launch
+    they make held against its plain version on the inputs it was given.
 
 The multi-GPU DIB-R step of BASELINE config #5 (``kaolin_tpu_torch.parallel``
 on ``torch.distributed``; K1/K2 on every rank):
@@ -222,8 +232,8 @@ on ``torch.distributed``; K1/K2 on every rank):
 24. path H: world size 1 on NCCL in this process (a ``file://`` store):
     ``multi_view_grad`` over the fused trainer loss at the DIB-R cell
     (512^2, 4 views, 10,000 faces, a 256^2 texture), step 0 against the
-    one-process step on the same inputs and its K1 / K2 launches against
-    their plain versions, 5 Adam steps (the loss falls; the launches
+    one-process step on the same inputs and its K1 / K2 / E1-E3 launches
+    against their plain versions, 5 Adam steps (the loss falls; the launches
     counted as ``path_launches['path_h']``), the step in turns with the
     one-process step, its forward, backward and all-reduce inside the same
     step, its idle share; config #5's per-view width (1024^2, 8 views):
@@ -242,7 +252,10 @@ Each phase prints its seconds, and the script its total.
 Every kernel of the ``kernels`` line carries its time, its plain
 version's, its bound (the larger of bytes over 3.35 TB/s and float32
 operations over 67 TFLOP/s, counted on this run's inputs) and, where one
-PyTorch call computes the same function, that call's time.
+PyTorch call computes the same function, that call's time.  E1-E3's
+launches are counted on every path that renders through ``rasterize``'s
+epilogue and ``texture_mapping``: the DIB-R step, config #1 and paths F,
+G (the fit and the examples) and H.
 
 Every phase synchronises and raises on failure; there is no CPU path.
 Usage: ``python3 chip_smoke.py`` from the root of the repository.  The last
@@ -286,7 +299,9 @@ from kaolin_tpu_torch.ops.spc import (
 from kaolin_tpu_torch.ops.spc.convolution import (tap_coords, tap_pairs,
                                                   tap_products)
 from kaolin_tpu_torch.render.camera import Camera
+from kaolin_tpu_torch.ops import _scatter as SC
 from kaolin_tpu_torch.render.mesh import _fused as FU
+from kaolin_tpu_torch.render.mesh import _sample as SA
 from kaolin_tpu_torch.render.mesh import (deftet_sparse_render,
                                           dibr_soft_mask,
                                           dibr_soft_mask_select,
@@ -365,9 +380,15 @@ K2_REL_MAX = 1e-3           # max |grad diff| / max |grad|
 STEP0_LOSS_RTOL = 1e-4
 STEP0_GRAD_REL = 1e-3
 # the compiled step's first replay against the eager step from the same
-# parameters: the same kernels; only the gather and grid_sample backward's
-# atomic sums differ in order
-REPLAY_GRAD_REL = 1e-5
+# parameters, by backend: the same kernels.  'fused' has no atomic sum left
+# in its backward (E2 and E3 add in a fixed order), so its gradients are
+# bit-equal; the 'jnp' soft mask's backward adds its k-buffer's vertex
+# gradients with index_add_, in an order that changes from run to run
+REPLAY_GRAD_REL = dict(fused=0., jnp=1e-5)
+# E1-E3 against their plain versions (same inputs, same card): E1 the same
+# ops in the same order; E2's texel sums and E3's row sums in another order
+E1_MAX = 1e-6               # max |sample - plain| (texels in [0, 1))
+E_REL_MAX = 1e-5            # max |d| / max |plain| of E2's dT, dx, dy, E3
 # a step's parts, timed by contiguous CUDA events inside it, against the
 # step: only the float rounding of elapsed_time lies between them
 PARTS_RTOL, PARTS_ATOL_MS = 0.01, 0.01
@@ -416,6 +437,10 @@ K1_MASK_FLOPS = 87    # (pixel, face) in the face's enlarged bbox (outside
 #                       the product
 K2_FLOPS = 125        # (face, pixel) in the bbox where g*prod != 0: the
 #                       candidates, exp, dL/dd, the argmin, 4-6 gradient terms
+# float32 operations per entry of E1-E3, counted from csrc/epilogue.cu
+E1_FLOPS = 11         # (pixel, channel): 4 taps x 2 products, 3 sums
+E2_FLOPS = 22         # (pixel, channel): dx, dy (12) and 4 taps x (w * g, +)
+E3_FLOPS = 1          # (row, column): one sum
 # the TPU kernels the probes replace (def lines in the scripts)
 P1_LINES = dict(kA=61, kB=73, kC=97, kD=119, kE=144, kF=153, kG=162, kH=174)
 # acceptance limits
@@ -694,6 +719,122 @@ def culling(scene, inputs, g_prod):
     return res
 
 
+def check_epilogue(scene, card):
+    """Phase 3, continued: E1-E3 on the DIB-R cell's own inputs, those of
+    one eager step from the start point (kept by :func:`kept_launches`):
+    each against its plain version, each run twice more for the same bits,
+    and two whole eager steps' gradients compared bit for bit; their times
+    by both timers (``time_ms``, ``measure.device_ms``) in turns with one
+    PyTorch call of the same function (``grid_sample``,
+    ``grid_sampler_2d_backward``, ``index_add_`` into zeros), the plain
+    versions, the autograd indexing backward that E3 replaces
+    (``index_put_(accumulate=True)``) and the stable sorts alone; each
+    kernel's bound on these inputs.  These launches are not path
+    launches."""
+    twin = _twin(scene['params'])
+    saved = read_launches(tuple(HELD))
+    with kept_launches() as kept:
+        _step(scene, twin)
+        torch.cuda.synchronize()
+    grads = [p.grad.clone() for p in twin.parameters()]
+    _step(scene, twin)
+    step_bits = all(torch.equal(_bits(a), _bits(p.grad))
+                    for a, p in zip(grads, twin.parameters()))
+    held, err = hold_against_plain(kept, 'E1-E3 on the DIB-R cell')
+    _check(all(held[k] == 1 for k in EPILOGUE),
+           'one launch of each of E1-E3 in the DIB-R step')
+    args = {k: kept[k][0][0] for k in EPILOGUE}
+    outs = {k: kept[k][0][2] for k in EPILOGUE}
+    kern = {k: (lambda k=k: getattr(*HELD[k][:2])(*args[k]))
+            for k in EPILOGUE}
+    same = {}
+    for k in EPILOGUE:
+        ref = outs[k] if isinstance(outs[k], tuple) else (outs[k],)
+        runs = [kern[k]() for _ in range(2)]
+        same[k] = all(torch.equal(_bits(a), _bits(b)) for run in runs
+                      for a, b in zip(run if isinstance(run, tuple)
+                                      else (run,), ref))
+    tex_rows, x, y, hw = args['sample']
+    TH, TW, B, P = hw
+    Q, R, C = x.shape[0], tex_rows.shape[0], tex_rows.shape[1]
+    g = args['sample_bwd'][3]
+    gs, idx, N = args['scatter']
+    D = gs.shape[1]
+    tex_img = tex_rows.reshape(B, TH, TW, C).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([(x + 0.5) * (2. / TW) - 1.,
+                        (y + 0.5) * (2. / TH) - 1.], -1).reshape(B, 1, P, 2)
+    g_img = g.reshape(B, 1, P, C).permute(0, 3, 1, 2).contiguous()
+    lib = {'sample': lambda: torch.nn.functional.grid_sample(
+               tex_img, grid, mode='bilinear', padding_mode='border',
+               align_corners=False),
+           'sample_bwd': lambda: torch.ops.aten.grid_sampler_2d_backward(
+               g_img, tex_img, grid, 0, 1, False, [True, True]),
+           'scatter': lambda: torch.zeros((N, D), device=gs.device)
+           .index_add_(0, idx, gs)}
+    lib_out = lib['sample']()[:, :, 0].permute(0, 2, 1).reshape(Q, C)
+    lib_err = (lib_out - outs['sample']).abs().max().item()
+    keys = torch.cat(SA._flat_corner_idx(x, y, TH, TW, B, P)[0])
+    sort_ms = {
+        'sample_bwd': measure.device_ms(lambda: torch.sort(keys, stable=True),
+                                        20),
+        'scatter': measure.device_ms(lambda: torch.sort(idx, stable=True),
+                                     20)}
+    put_ms = measure.device_ms(lambda: torch.zeros(
+        (N, D), device=gs.device).index_put_((idx.long(),), gs,
+                                             accumulate=True), 3)
+    nbytes = {'sample': 4 * (R * C + 2 * Q + Q * C),
+              'sample_bwd': 4 * (2 * R * C + 4 * Q + Q * C),
+              'scatter': 4 * (gs.numel() + idx.numel() + N * D)}
+    flops = {'sample': E1_FLOPS * Q * C, 'sample_bwd': E2_FLOPS * Q * C,
+             'scatter': E3_FLOPS * gs.numel()}
+    runs = {'sample_bwd': int(torch.bincount(keys).max()),
+            'scatter': int(torch.bincount(idx).max())}
+    rows = {}
+    for k in EPILOGUE:
+        ms, lib_ms = measure.in_turns(time_ms, kern[k], lib[k], 20)
+        dev_ms, lib_dev_ms = measure.in_turns(measure.device_ms, kern[k],
+                                              lib[k], 20)
+        rows[k] = dict(ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+                       library_device_ms=lib_dev_ms,
+                       plain_ms=time_ms(lambda k=k: HELD[k][2](*args[k]), 3),
+                       max_abs_err=err[k], same_bits=same[k],
+                       **_bound(nbytes[k], flops[k]))
+    for k, v in saved.items():
+        COUNTS[k][k] = v
+    print(f'E1-E3 on the DIB-R cell\'s step: textures (B*H*W, C) = ({R}, '
+          f'{C}), {Q} pixels, face table ({N}, {D}); the longest run of one '
+          f'id: {runs["sample_bwd"]} of the {4 * Q} texel taps, '
+          f'{runs["scatter"]} of the {idx.numel()} face rows; against '
+          f'plain: max abs err {err}; E1-E3 run twice more on the same '
+          f'inputs, the same bits: {same}; two whole eager steps\' '
+          f'gradients the same bits: {step_bits}; grid_sample against E1 '
+          f'max|d| {lib_err:.3e}')
+    _check(all(same.values()), 'E1-E3 give the same bits on every run')
+    _check(lib_err <= 1e-5, 'grid_sample computes E1\'s function')
+    names = dict(sample='E1 bilinear_forward_kernel',
+                 sample_bwd='E2 bilinear_pixels_kernel + stable sort + '
+                            'segment sums',
+                 scatter='E3 stable sort + segment sums')
+    libs = dict(sample='grid_sample', sample_bwd='grid_sampler_2d_backward',
+                scatter='index_add_ into zeros')
+    for k in EPILOGUE:
+        r = rows[k]
+        print(f'[{card}] {names[k]}: {r["ms"]:.4f} ms per call, '
+              f'{r["device_ms"]:.4f} ms on the device; {libs[k]} '
+              f'{r["library_ms"]:.4f} / {r["library_device_ms"]:.4f} ms (in '
+              f'turns); plain {r["plain_ms"]:.4f} ms; bound '
+              f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})'
+              + (f'; of it the stable sort alone {sort_ms[k]:.4f} ms on the '
+                 f'device' if k in sort_ms else ''))
+    print(f'[{card}] the autograd indexing backward E3 replaces '
+          f'(index_put_(accumulate=True), indexing_backward_kernel) on the '
+          f'same ids: {put_ms:.4f} ms on the device')
+    for k in sort_ms:
+        rows[k]['sort_device_ms'] = sort_ms[k]
+    rows['scatter']['index_put_device_ms'] = put_ms
+    return rows, step_bits
+
+
 def _step(scene, params, selection=None):
     """compute_selection -> render_loss -> backward; returns the loss."""
     H = scene['height']
@@ -789,14 +930,13 @@ def train(scene, steps=STEPS):
     """The trainer: ``steps`` Adam steps of the compiled step (one CUDA
     graph replayed a step), held against the eager step + Adam from the
     same parameters: step 0's face ids, soft-mask selection and loss bit
-    for bit and its gradients within REPLAY_GRAD_REL of their largest;
-    every step's loss within step 0's card-vs-CPU limit (later steps'
-    gradients are printed: the two runs' parameters part by the order of
-    the atomic sums, which Adam's first steps enlarge where a gradient is
-    near zero); K1 and K2 as launched inside the graph against their plain
-    versions on the graph's own inputs.  Returns (the kernels' launches
-    over the replays, the losses, the compiled step, the peak memory of
-    its build and replays)."""
+    for bit and its gradients within REPLAY_GRAD_REL (by backend) of their
+    largest; every step's loss within step 0's card-vs-CPU limit (later
+    steps' gradients are printed); K1, K2 and E1-E3 as launched inside the
+    graph against their plain versions on the graph's own inputs.  Returns
+    (the kernels' launches over the replays, the losses, the compiled step,
+    the peak memory of its build and replays, E1-E3's max abs errors
+    inside the graph)."""
     params = scene['params']
     start = {n: p.detach().clone() for n, p in params.named_parameters()}
     twin, eager = _twin(params), []
@@ -815,8 +955,7 @@ def train(scene, steps=STEPS):
         call = compiled(scene, params, _adam(params))
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    for k in FU.LAUNCHES:
-        FU.LAUNCHES[k] = 0
+    zero_launches()
     out = []
     t0 = time.perf_counter()
     for k in range(steps):
@@ -827,7 +966,7 @@ def train(scene, steps=STEPS):
                                           for p in params.parameters()]))
     torch.cuda.synchronize()
     loop_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(FU.LAUNCHES)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     print(f'compiled step ({scene["backend"]}): built in {build_s:.2f} s '
           f'(host clock: {M._WARMUP} warm-up steps, the state put back, '
@@ -856,34 +995,38 @@ def train(scene, steps=STEPS):
     print(f'step 0, replay against eager from the same parameters: face_idx, '
           f'soft-mask selection, loss bit-equal {same}; gradients max|d| / '
           f'max|g| ' + ', '.join(f'{x:.2e}' for x in g_rel)
-          + f' (limit {REPLAY_GRAD_REL:g}: the gather and grid_sample '
-          f'backward add with atomics)')
+          + f' (limit {REPLAY_GRAD_REL[scene["backend"]]:g})')
     _check(all(same), 'step 0: the replay bit-equal to eager')
-    _check(all(x <= REPLAY_GRAD_REL for x in g_rel),
+    _check(all(x <= REPLAY_GRAD_REL[scene['backend']] for x in g_rel),
            'step 0: the replay\'s gradients against eager')
     in_graph = {k: [e for e in v if e[3]] for k, v in kept.items()}
-    held, err = hold_against_plain(in_graph, 'K1/K2 inside the graph')
-    print(f'K1/K2 as launched inside the graph, on its last replay\'s '
+    held, err = hold_against_plain(in_graph, 'K1/K2/E1-E3 inside the graph')
+    print(f'K1/K2/E1-E3 as launched inside the graph, on its last replay\'s '
           f'inputs, against plain: {held} held, max abs err {err}')
     fused = scene['backend'] == 'fused'
-    _check(held['fwd'] == held['bwd'] == int(fused) and not held['trace'],
-           'the graph holds one K1 and one K2 launch (fused)')
+    _check(held['fwd'] == held['bwd'] == int(fused) and not held['trace']
+           and all(held[k] == 1 for k in EPILOGUE),
+           'the graph holds one K1 and one K2 launch (fused) and one of '
+           'each of E1-E3')
     print(f'kernel launches during the {steps} replays: {launches}')
-    _check(launches == dict(fwd=steps * fused, bwd=steps * fused),
-           'one K1 and one K2 launch counted per replay')
+    _check(launches == dict(fwd=steps * fused, bwd=steps * fused,
+                            **{k: steps for k in EPILOGUE}),
+           'one K1 and one K2 launch (fused) and one of each of E1-E3 '
+           'counted per replay')
     _check(all(np.isfinite(losses)), 'losses finite')
     _check(losses[-1] < losses[0], 'the loss falls')
     for n, p in params.named_parameters():
         _check(torch.isfinite(p).all().item(), f'{n} finite')
         _check(not torch.equal(p.detach(), start[n]), f'{n} moved')
-    return launches, losses, call, peak
+    return launches, losses, call, peak, {k: err[k] for k in EPILOGUE}
 
 
-def step_profile(step, card, steps=3, top=8):
+def step_profile(step, card, steps=3, top=8, kernels=None):
     """``step()`` on the card's timeline (``torch.profiler`` over ``steps``
     steps after the timed ones): kernels per step, the union of their
     intervals against the host clock (device busy and idle share), and the
-    kernels that take the most device time.  Returns the idle share."""
+    kernels that take the most device time.  Returns the idle share;
+    ``kernels``, a dict, gets each kernel's ms per step by name."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -905,6 +1048,8 @@ def step_profile(step, card, steps=3, top=8):
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.) + (b - a) / 1e3 / steps
     heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    if kernels is not None:
+        kernels.update(by_name)
     print(f'[{card}] step on the timeline ({steps} steps, profiled): '
           f'{len(spans) / steps:.0f} kernels per step, device busy '
           f'{busy / 1e3 / steps:.3f} ms of {wall / steps:.3f} ms per step '
@@ -943,7 +1088,25 @@ def times(scene, inputs, g_prod, card, call, peak):
     compiled_ms, eager_ms = measure.in_turns(time_ms, call, eager, 5)
     device = time_ms(call.step.graph.replay, 5)
     print(f'[{card}] compiled step: profile')
-    idle_c = step_profile(call, card)
+    prof = {}
+    idle_c = step_profile(call, card, top=12, kernels=prof)
+
+    def named(*parts):
+        return sum(ms for n, ms in prof.items()
+                   if any(p in n for p in parts))
+    epi = dict(grid_sampler_ms=named('grid_sampler'),
+               indexing_backward_ms=named('indexing_backward'),
+               epilogue_kernels_ms=named('bilinear_', 'segment_'),
+               sort_ms=named('Radix', 'radix', 'Sort', 'sort'))
+    print(f'[{card}] compiled step, kernels by name (ms per step): '
+          f'grid_sampler* {epi["grid_sampler_ms"]:.3f}, '
+          f'indexing_backward* {epi["indexing_backward_ms"]:.3f} (what is '
+          f'left: index_vertices_by_faces\' backward), E1-E3 (bilinear_*, '
+          f'segment_*) {epi["epilogue_kernels_ms"]:.3f}, the stable sorts '
+          f'{epi["sort_ms"]:.3f}')
+    _check(epi['grid_sampler_ms'] == 0.,
+           'grid_sample\'s kernels are gone from the compiled step')
+    _check(epi['epilogue_kernels_ms'] > 0., 'E1-E3 run in the compiled step')
     print(f'[{card}] eager step: profile')
     idle_e = step_profile(eager, card)
     fwd = (vt, tr, cbb, H, H, MULT, EPS, SIGMAINV, True)
@@ -970,7 +1133,7 @@ def times(scene, inputs, g_prod, card, call, peak):
           f'{k2_plain_ms:.4f} ms')
     return dict(step_ms=compiled_ms, eager_ms=eager_ms, device_ms=device,
                 k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k2_ms=k2_ms,
-                k2_plain_ms=k2_plain_ms)
+                k2_plain_ms=k2_plain_ms, idle=idle_c, profile=epi)
 
 
 # ---------------------------------------------------------------------------
@@ -1671,9 +1834,10 @@ def config1(dev, card):
     _check(share <= JNP_FID_MISMATCH_MAX and ties,
            "'jnp' selection equals K1's but at z ties")
 
-    launches, losses, call, _ = train(scene)
+    launches, losses, call, _, _ = train(scene)
     del call
-    _check(sum(launches.values()) == 0, "the 'jnp' path runs no kernel")
+    _check(launches['fwd'] == launches['bwd'] == 0,
+           "the 'jnp' path runs neither K1 nor K2")
     cpu_s = check_step_against_plain(make_scene(
         dev, mesh=mesh, **dict(CFG1, **STEP0_SIZE)))
 
@@ -1710,7 +1874,8 @@ def config1(dev, card):
           f'{zsel_ms:.3f} ms; k-buffer selection (dibr_soft_mask_select) '
           f'{ksel_ms:.3f} ms; soft-mask epilogue: {split}')
     step_profile(lambda: _step(scene, scene['params']), card)
-    return dict(step_ms=step_ms, cpu_s=cpu_s)
+    return dict(step_ms=step_ms, cpu_s=cpu_s,
+                launches={k: launches[k] for k in EPILOGUE})
 
 
 # ---------------------------------------------------------------------------
@@ -3034,8 +3199,8 @@ def pf_checkpoint(scene, params, opt, ckdir, step):
 def pf_fit(scene, mesh, tl, ckdir):
     """The 20 Adam steps with the Timelapse and the checkpoint; the twin
     resumed from the checkpoint takes step PF_SAVE_AT beside the loop.
-    Returns the losses, what was logged, the Timelapse write times and the
-    resume comparison."""
+    Returns the losses, what was logged, the Timelapse write times, the
+    resume comparison and step 0's kernel launches (kept)."""
     params = scene['params']
     opt = torch.optim.Adam(params.parameters(), lr=LR)
     gen = torch.Generator(device=params.vertices.device).manual_seed(PF_SEED)
@@ -3064,7 +3229,11 @@ def pf_fit(scene, mesh, tl, ckdir):
             resume['loss'] = loss_r.item()
             resume['grads'] = [p.grad.clone() for p in twin.parameters()]
             twin_opt.step()
-        loss, _ = _step(scene, params)
+        with (kept_launches() if step == 0
+              else contextlib.nullcontext()) as kept:
+            loss, _ = _step(scene, params)
+        if step == 0:
+            first = kept
         if step == PF_SAVE_AT:
             resume['grads_mem'] = [p.grad.clone() for p in params.parameters()]
             before = [p.detach().clone() for p in params.parameters()]
@@ -3075,7 +3244,7 @@ def pf_fit(scene, mesh, tl, ckdir):
             resume['params'] = [(a, b.detach().clone(), c.detach().clone())
                                 for a, b, c in zip(before, params.parameters(),
                                                    twin.parameters())]
-    return losses, logged, t_log, resume
+    return losses, logged, t_log, resume, first
 
 
 def pf_check_resume(resume):
@@ -3273,8 +3442,7 @@ def path_f(dev, card):
         del vt, tr, ctr, cbb, one, fid, prod
         logdir = os.path.join(tmp, 'timelapse')
         tl = Timelapse(logdir)
-        for k in FU.LAUNCHES:
-            FU.LAUNCHES[k] = 0
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = {}
@@ -3285,19 +3453,25 @@ def path_f(dev, card):
 
         idle = step_profile(fit, card, steps=1)
         fit_ms = (time.perf_counter() - t0) * 1e3
-        launches = dict(FU.LAUNCHES)
-        losses, logged, t_log, resume = result['fit']
+        launches = read_launches()
+        losses, logged, t_log, resume, first = result['fit']
+        held, err = hold_against_plain(_epilogue_only(first),
+                                       'path F step 0')
+        print(f'path F step 0\'s E1-E3 launches held against plain: '
+              f'{held}, max abs err {err}')
+        _check(all(held[k] == 1 for k in EPILOGUE),
+               'path F: step 0 launches E1-E3 once each')
+        del first
         print(f'path F fit: {PF_STEPS} Adam steps (fused, {VIEWS} views, '
               f'{HEIGHT}^2, texture {TEXTURE_RES}^2) from the imported '
               f'sphere perturbed by 0.05 N(0, 1): loss {losses[0]:.6f} -> '
-              f'{losses[-1]:.6f}; K1/K2 launches {launches} (the loop and '
-              f'the resumed step); {fit_ms:.1f} ms for the whole fit with '
+              f'{losses[-1]:.6f}; K1/K2/E1-E3 launches {launches} (the loop '
+              f'and the resumed step); {fit_ms:.1f} ms for the whole fit with '
               f'logging and the checkpoint, under the profiler (host '
               f'clock), card idle share {idle:.3f}')
         _check(losses[-1] < losses[0], 'path F: the loss falls')
-        _check(launches['fwd'] >= PF_STEPS + 1
-               and launches['bwd'] >= PF_STEPS + 1,
-               'path F: K1 and K2 on every step')
+        _check(all(launches[k] >= PF_STEPS + 1 for k in DIBR_KERNELS),
+               'path F: K1, K2 and E1-E3 on every step')
         print('path F Timelapse writes (ms, host clock: mesh, point cloud): '
               + ', '.join(f'iteration {k} {a:.1f} / {b:.1f}'
                           for k, (a, b) in t_log.items()))
@@ -3311,7 +3485,8 @@ def path_f(dev, card):
           f'{mise_ms:.1f} ms (host clock); peak device memory {peak:.3f} '
           f'GiB')
     return dict(launches=launches, k1_err=k1_err, k2_err=k2_err,
-                step_ms=step_ms, idle=idle, peak=peak)
+                epi_err={k: err[k] for k in EPILOGUE}, step_ms=step_ms,
+                idle=idle, peak=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -3553,7 +3728,7 @@ def pg_step0(model, dev):
 
 def pg_fit(views, faces, sil, depth, v0, tl):
     """PG_STEPS Adam steps from the sphere; the mesh and a point cloud
-    logged every PG_LOG_EVERY."""
+    logged every PG_LOG_EVERY; step 0's kernel launches kept."""
     v = v0.clone().requires_grad_()
     opt = torch.optim.Adam([v], lr=LR)
     gen = torch.Generator(device=v.device).manual_seed(PG_SEED)
@@ -3569,11 +3744,15 @@ def pg_fit(views, faces, sil, depth, v0, tl):
                                     pointcloud_list=[pts])
             logged[step] = (cur.cpu().numpy().copy(), pts.cpu().numpy())
         opt.zero_grad()
-        loss = pg_loss(v, views, faces, sil, depth, HEIGHT)
-        loss.backward()
+        with (kept_launches() if step == 0
+              else contextlib.nullcontext()) as kept:
+            loss = pg_loss(v, views, faces, sil, depth, HEIGHT)
+            loss.backward()
+        if step == 0:
+            first = kept
         opt.step()
         losses.append(loss.item())
-    return v.detach(), losses, logged
+    return v.detach(), losses, logged, first
 
 
 def pg_dash3d(logdir, logged, faces):
@@ -3610,7 +3789,26 @@ def pg_dash3d(logdir, logged, faces):
 # the kernels' CUDA wrappers by LAUNCHES key: (module, attribute, plain)
 HELD = {'fwd': (FU, '_fused_forward_cuda', FU._fused_forward_torch),
         'bwd': (FU, '_fused_backward_cuda', FU._fused_backward_torch),
-        'trace': (_trace, '_trace_cuda', _trace._trace_torch)}
+        'trace': (_trace, '_trace_cuda', _trace._trace_torch),
+        'sample': (SA, '_bilinear_forward_cuda', SA._bilinear_forward_torch),
+        'sample_bwd': (SA, '_bilinear_backward_cuda',
+                       SA._bilinear_backward_torch),
+        'scatter': (SC, '_scatter_rows_cuda', SC._scatter_rows_torch)}
+EPILOGUE = ('sample', 'sample_bwd', 'scatter')      # E1, E2, E3
+DIBR_KERNELS = ('fwd', 'bwd') + EPILOGUE
+# each LAUNCHES key's count dictionary
+COUNTS = {k: getattr(mod, 'LAUNCHES') for k, (mod, _, _) in HELD.items()}
+
+
+def zero_launches(keys=tuple(HELD)):
+    """Set the launch counts of ``keys`` to 0."""
+    for k in keys:
+        COUNTS[k][k] = 0
+
+
+def read_launches(keys=DIBR_KERNELS):
+    """The launch counts of ``keys``."""
+    return {k: COUNTS[k][k] for k in keys}
 
 
 def _clone(x):
@@ -3622,7 +3820,7 @@ def _clone(x):
 @contextlib.contextmanager
 def kept_launches():
     """Within the block, keep the inputs and the outputs of every launch
-    of K1, K2 and K3, by LAUNCHES key, for :func:`hold_against_plain`:
+    of K1, K2, K3 and E1-E3, by LAUNCHES key, for :func:`hold_against_plain`:
     (args, kwargs, outputs, captured).  A launch captured in a CUDA graph
     (``captured`` True) is kept by copies captured with it, so after each
     replay they hold that replay's inputs and outputs.  The launches
@@ -3648,12 +3846,37 @@ def kept_launches():
             setattr(mod, attr, launch[key])
 
 
+def _epilogue_err(key, out_k, out_p):
+    """max |kernel - plain| of an E1-E3 launch, checked against E1_MAX
+    (E1) or E_REL_MAX times each output's largest (E2, E3)."""
+    outs = (zip(out_k, out_p) if isinstance(out_k, tuple)
+            else [(out_k, out_p)])
+    worst = 0.
+    for a, b in outs:
+        d = (a - b).abs().max().item() if a.numel() else 0.
+        scale = b.abs().max().item() if b.numel() else 0.
+        limit = (E1_MAX * max(1., scale) if key == 'sample'
+                 else E_REL_MAX * scale)
+        _check(d <= limit and bool(torch.isfinite(a).all()),
+               f'{key} against plain (max|d| {d:.3e}, limit {limit:.3e})')
+        worst = max(worst, d)
+    return worst
+
+
+def _epilogue_only(kept):
+    """The kept launches of E1-E3 alone (K1 and K2 of a full-size step
+    are held on one view, where their plain versions take seconds)."""
+    return {k: (v if k in EPILOGUE else []) for k, v in kept.items()}
+
+
 def hold_against_plain(kept, what):
     """Each kept launch against its kernel's plain version on the same
     inputs, with phases 2-3 and 7's limits: K1 face ids (share differing)
     and prod, K2 the gradient relative to its largest, K3 every output
-    bitwise.  Returns ({key: launches held}, {key: max abs error})."""
-    err = dict(fwd=0., bwd=0., trace=0.)
+    bitwise; E1 within E1_MAX, E2 (dT, dx, dy) and E3 within E_REL_MAX of
+    each output's largest.  Returns ({key: launches held}, {key: max abs
+    error})."""
+    err = {k: 0. for k in HELD}
     for args, kw, (fid_k, prod_k), _ in kept['fwd']:
         fid_p, prod_p = HELD['fwd'][2](*args, **kw)
         mismatch = (fid_k != fid_p).float().mean().item()
@@ -3672,6 +3895,10 @@ def hold_against_plain(kept, what):
         out_p = HELD['trace'][2](*args, **kw)
         _check(_same_outputs(out_k, out_p), f'{what}: K3 against plain')
         err['trace'] = max(err['trace'], _max_t_err(out_k, out_p))
+    for key in EPILOGUE:
+        for args, kw, out_k, _ in kept[key]:
+            out_p = HELD[key][2](*args, **kw)
+            err[key] = max(err[key], _epilogue_err(key, out_k, out_p))
     return {k: len(v) for k, v in kept.items()}, err
 
 
@@ -3745,17 +3972,15 @@ def pg_viewers(vertices, faces, dev):
 
 
 def pg_examples(dev, tmp):
-    """The five examples' main() in-process on the card; K1, K2 and K3
-    launches counted around them, each launch held against its kernel's
+    """The five examples' main() in-process on the card; K1, K2, K3 and
+    E1-E3 launches counted around them, each launch held against its kernel's
     plain version on the inputs the example gave it (a launch in the DIB-R
     example's CUDA graph on its last replay's).  Returns (launches, max
     abs errors)."""
-    for k in FU.LAUNCHES:
-        FU.LAUNCHES[k] = 0
-    _trace.LAUNCHES['trace'] = 0
-    err = dict(fwd=0., bwd=0., trace=0.)
-    n_held = dict(fwd=0, bwd=0, trace=0)
-    n_captured = dict(fwd=0, bwd=0, trace=0)
+    zero_launches()
+    err = {k: 0. for k in HELD}
+    n_held = {k: 0 for k in HELD}
+    n_captured = {k: 0 for k in HELD}
     for name, argv, last in PG_EXAMPLES:
         mod = importlib.import_module(f'kaolin_tpu_torch.examples.{name}')
         extra = (['--logdir', os.path.join(tmp, 'example_timelapse')]
@@ -3782,8 +4007,7 @@ def pg_examples(dev, tmp):
               f'{ {k: float(f"{v:.3e}") for k, v in e.items()} }; '
               f'{secs:.2f} s wall (host clock, test sizes: start-up and '
               f'first calls, with the recorder; not a rate)')
-    launches = dict(fwd=FU.LAUNCHES['fwd'], bwd=FU.LAUNCHES['bwd'],
-                    trace=_trace.LAUNCHES['trace'])
+    launches = read_launches(tuple(HELD))
     # launches no recorder saw: the replays of captured launches
     replayed = {k: launches[k] - (n_held[k] - n_captured[k])
                 for k in launches}
@@ -3791,9 +4015,8 @@ def pg_examples(dev, tmp):
           f'from CUDA graphs {replayed}; every eager launch held against '
           f'plain, and each of the {n_captured} captured ones on its last '
           f'replay\'s inputs; max abs err {err}')
-    _check(launches['fwd'] > 0 and launches['bwd'] > 0
-           and launches['trace'] > 0,
-           'path G: the examples launch K1, K2 and K3')
+    _check(all(launches[k] > 0 for k in HELD),
+           'path G: the examples launch K1, K2, K3 and E1-E3')
     _check(all(replayed[k] >= n_captured[k]
                and (replayed[k] > 0) == (n_captured[k] > 0)
                for k in launches),
@@ -3809,8 +4032,7 @@ def path_g(dev, card):
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         shapenet, modelnet, shrec = pg_corpus(tmp)
-        for k in FU.LAUNCHES:
-            FU.LAUNCHES[k] = 0
+        zero_launches()
         models = pg_load(tmp, shapenet, modelnet, shrec, dev)
         (views, sil, depth), t_views = pg_views(models, dev, tmp)
         target = models[0]
@@ -3836,39 +4058,49 @@ def path_g(dev, card):
         def fit():
             result['fit'] = pg_fit(views, faces, sil, depth, v0, tl)
 
-        fit_launches = dict(FU.LAUNCHES)
+        fit_launches = read_launches()
         t0 = time.perf_counter()
         idle = step_profile(fit, card, steps=1)
         fit_ms = (time.perf_counter() - t0) * 1e3
-        fitted, losses, logged = result['fit']
-        fit_launches = {k: FU.LAUNCHES[k] - fit_launches[k]
-                        for k in FU.LAUNCHES}
+        fitted, losses, logged, first = result['fit']
+        fit_launches = {k: n - fit_launches[k]
+                        for k, n in read_launches().items()}
+        held, fit_err = hold_against_plain(_epilogue_only(first),
+                                           'path G fit step 0')
+        del first
+        print(f'path G fit step 0\'s E3 launch held against plain: {held}, '
+              f'max abs err {fit_err["scatter"]:.3e}')
+        _check(held['scatter'] == 1 and not held['sample'],
+               'path G: the fit\'s step 0 launches E3 once (no texture)')
         print(f'path G fit: {PG_STEPS} Adam steps (fused, {VIEWS} views, '
               f'{HEIGHT}^2) of the radius-{PG_FIT_RADIUS} sphere to model '
               f'0\'s imported silhouettes and depths: loss {losses[0]:.6f} '
-              f'-> {losses[-1]:.6f}; K1/K2 launches {fit_launches}; '
+              f'-> {losses[-1]:.6f}; K1/K2/E1-E3 launches {fit_launches}; '
               f'{fit_ms:.1f} ms with the Timelapse, under the profiler '
               f'(host clock), card idle share {idle:.3f}')
         _check(losses[-1] < losses[0], 'path G: the loss falls')
         _check(fit_launches['fwd'] >= PG_STEPS
-               and fit_launches['bwd'] >= PG_STEPS,
-               'path G: K1 and K2 on every step')
+               and fit_launches['bwd'] >= PG_STEPS
+               and fit_launches['scatter'] >= PG_STEPS,
+               'path G: K1, K2 and E3 on every step')
         step_ms = time_ms(lambda: pg_loss(
             fitted.clone().requires_grad_(), views, faces, sil, depth,
             HEIGHT).backward(), 3)
         nbytes, dash_ms = pg_dash3d(logdir, logged, faces)
         viewer_err = pg_viewers(fitted, faces, dev)
-        launches = dict(FU.LAUNCHES)
+        launches = read_launches()
         ex_launches, ex_err = pg_examples(dev, tmp)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'[{card}] path G: fit step {step_ms:.3f} ms (CUDA events, '
           f'forward + backward, {VIEWS} views, {HEIGHT}^2); dash3d '
-          f'{nbytes} bytes in {dash_ms:.1f} ms; K1/K2 launches on path G '
+          f'{nbytes} bytes in {dash_ms:.1f} ms; K1/K2/E1-E3 launches on '
+          f'path G '
           f'{launches}, in the examples {ex_launches}; peak device memory '
           f'{peak:.3f} GiB')
     return dict(launches=launches, examples=ex_launches,
                 k1_err=max(k1_err, viewer_err, ex_err['fwd']),
                 k2_err=max(k2_err, ex_err['bwd']), k3_err=ex_err['trace'],
+                epi_err={k: max(fit_err[k], ex_err[k]) for k in EPILOGUE},
                 step_ms=step_ms, idle=idle, peak=peak)
 
 
@@ -3925,8 +4157,7 @@ def ph_world1(dev, card, scene, ref):
                                        .as_params()))
     loss_fn = DR.view_loss(scene, H, dev)
     step = multi_view_grad(loss_fn, mesh)
-    for k in FU.LAUNCHES:
-        FU.LAUNCHES[k] = 0
+    zero_launches()
     with kept_launches() as kept:
         loss, grads = step(model.as_params(), views)
         torch.cuda.synchronize()
@@ -3935,8 +4166,8 @@ def ph_world1(dev, card, scene, ref):
         f'against the one-process step', loss.item(),
         [g.cpu().numpy() for g in grads], ref)
     held, err = hold_against_plain(kept, 'path H step 0')
-    _check(held['fwd'] >= 1 and held['bwd'] >= 1,
-           'path H: K1 and K2 launched in the step')
+    _check(all(held[k] >= 1 for k in DIBR_KERNELS),
+           'path H: K1, K2 and E1-E3 launched in the step')
     opt = torch.optim.Adam(model.parameters(), lr=LR)
     losses = []
     for _ in range(STEPS):
@@ -3946,15 +4177,16 @@ def ph_world1(dev, card, scene, ref):
         opt.step()
         losses.append(loss.item())
     torch.cuda.synchronize()
-    launches = dict(FU.LAUNCHES)
+    launches = read_launches()
     print(f'path H: {STEPS} Adam steps through multi_view_grad: loss '
-          f'{" -> ".join(f"{x:.6f}" for x in losses)}; K1/K2 launches '
+          f'{" -> ".join(f"{x:.6f}" for x in losses)}; K1/K2/E1-E3 launches '
           f'{launches} (step 0 and the {STEPS} steps); step 0\'s launches '
           f'held against plain {held}, max abs err K1 prod '
-          f'{err["fwd"]:.3e}, K2 {err["bwd"]:.3e}')
+          f'{err["fwd"]:.3e}, K2 {err["bwd"]:.3e}, E1-E3 '
+          f'{ {k: float(f"{err[k]:.3e}") for k in EPILOGUE} }')
     _check(losses[-1] < losses[0], 'path H: the loss falls')
-    _check(launches['fwd'] >= STEPS + 1 and launches['bwd'] >= STEPS + 1,
-           'path H: K1 and K2 on every step')
+    _check(all(launches[k] >= STEPS + 1 for k in DIBR_KERNELS),
+           'path H: K1, K2 and E1-E3 on every step')
 
     params = model.as_params()
     everything = tuple(torch.as_tensor(scene[k], device=dev)
@@ -3990,7 +4222,8 @@ def ph_world1(dev, card, scene, ref):
           f'one-process step {one_ms:.3f} ms (in turns); parts: {line}; '
           f'idle share {idle:.3f}')
     return dict(launches=launches, k1_err=err['fwd'], k2_err=err['bwd'],
-                grad_err=grad_err, step_ms=sharded_ms, one_ms=one_ms,
+                epi_err={k: err[k] for k in EPILOGUE}, grad_err=grad_err,
+                step_ms=sharded_ms, one_ms=one_ms,
                 parts=dict(zip(names, parts.mean(0).tolist())), idle=idle,
                 losses=losses)
 
@@ -4136,7 +4369,7 @@ def path_h(dev, card):
                           views_per_rank=VIEWS // PH_RANKS, height=HEIGHT,
                           seconds=two['seconds'],
                           launches=two['launches']))}))
-    return dict(launches=one['launches'],
+    return dict(launches=one['launches'], epi_err=one['epi_err'],
                 k1_err=max(one['k1_err'], cfg5['k1_err']),
                 k2_err=max(one['k2_err'], cfg5['k2_err']))
 
@@ -4167,8 +4400,9 @@ def main():
     phase('2: K1 against plain')
     g_prod, k2_err = check_backward(scene, inputs, fid, prod)
     culling(scene, inputs, g_prod)
-    phase('3: K2 against plain, culling')
-    launches, _, call, peak = train(scene)
+    epi, step_bits = check_epilogue(scene, card)
+    phase('3: K2 against plain, culling; E1-E3 against plain, their times')
+    launches, _, call, peak, epi_err = train(scene)
     check_step_against_plain(make_scene(dev, **STEP0_SIZE))
     phase('4: 5 Adam steps of the compiled step against eager, step 0 '
           f'against the CPU at {STEP0_SIZE["height"]}^2')
@@ -4207,9 +4441,8 @@ def main():
     del spc, dense_args, scene, inputs, g_prod, fid, prod, args
     torch.cuda.empty_cache()
 
-    for k in FU.LAUNCHES:
-        FU.LAUNCHES[k] = 0
-    config1(dev, card)
+    zero_launches()
+    cfg1 = config1(dev, card)
     phase('14: config #1 (OBJ -> k-buffer DIB-R 256^2)')
     deftet(dev, card)
     phase('15: config #4 (DefTet 256^2)')
@@ -4293,6 +4526,29 @@ def main():
              pinhole_ms=path_a_out['k3_ms'],
              pinhole_exit_ms=path_a_out['k3_exit_ms']),
     ]
+    # E1-E3: the DIB-R step's epilogue and its backward, on every path
+    # that renders through rasterize's epilogue and texture_mapping
+    epi_src = 'kaolin_tpu_torch/csrc/epilogue.cu'
+    epi_replaces = dict(sample='kaolin_tpu/render/mesh/utils.py:42',
+                        sample_bwd='kaolin_tpu/render/mesh/utils.py:66',
+                        scatter='kaolin_tpu/ops/gather.py:63')
+    epi_names = dict(sample='bilinear_forward_kernel',
+                     sample_bwd='bilinear_pixels_kernel+segment_sums',
+                     scatter='segment_sums')
+    for k in EPILOGUE:
+        per_path = {'dibr': launches[k], 'config1': cfg1['launches'][k],
+                    'path_f': path_f_out['launches'][k],
+                    'path_g': path_g_out['launches'][k],
+                    'examples': path_g_out['examples'][k],
+                    'path_h': path_h_out['launches'][k]}
+        row = dict(epi[k])
+        row['max_abs_err'] = max(row['max_abs_err'], epi_err[k],
+                                 *(out['epi_err'][k] for out in (
+                                     path_f_out, path_g_out, path_h_out)))
+        kernels.append(dict(
+            name=epi_names[k], route='cuda', source=epi_src,
+            replaces=epi_replaces[k], launches=sum(per_path.values()),
+            path_launches=per_path, **row))
     # the probes: `launches` counts their own entry point's run; none ran
     # on the DIB-R or SPC main paths (main_path_launches)
     for name in mosaic3.KERNELS:

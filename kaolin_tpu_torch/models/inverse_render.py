@@ -23,7 +23,8 @@ from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.metrics.render import mask_iou
 from kaolin_tpu_torch.render import camera as camera_fns
 from kaolin_tpu_torch.render import mesh as mesh_render
-from kaolin_tpu_torch.render.mesh import _fused
+from kaolin_tpu_torch.ops import _scatter
+from kaolin_tpu_torch.render.mesh import _fused, _sample
 from kaolin_tpu_torch.render.mesh.rasterization import _resolve_backend
 
 __all__ = ['InverseRender', 'InverseRenderParams', 'CameraViews',
@@ -32,6 +33,8 @@ __all__ = ['InverseRender', 'InverseRenderParams', 'CameraViews',
 
 # eager steps before a capture: PyTorch's whole-network capture recipe
 _WARMUP = 3
+# the launch counts of the kernels a step runs: K1 and K2, E1 and E2, E3
+_COUNTS = (_fused.LAUNCHES, _sample.LAUNCHES, _scatter.LAUNCHES)
 
 
 class InverseRenderParams(NamedTuple):
@@ -247,7 +250,8 @@ def compiled_step(model, views, faces, face_uvs, target_images, target_masks,
     The graph reads and writes the parameters and the optimizer's state in
     place, so a call raises once either was replaced (for example by
     ``load_state_dict``: load before building, or copy into the state).
-    Each replay adds the graph's kernel launches to ``_fused.LAUNCHES``.
+    Each replay adds the graph's kernel launches to the kernels' counts
+    (``LAUNCHES`` of ``_fused``, ``_sample`` and ``ops/_scatter``).
 
     On a CPU model each call runs the same step eagerly.  On either
     device, building takes ``_WARMUP`` eager steps and then puts the
@@ -312,13 +316,15 @@ class _CompiledStep:
         torch.cuda.current_stream().wait_stream(side)
         for p in self._params:
             p.grad = None
-        counts = dict(_fused.LAUNCHES)
+        counts = [dict(c) for c in _COUNTS]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self._loss, self.selection = self._run(inputs)
         # a capture launches nothing: its launches are the replays'
-        self._launches = {k: _fused.LAUNCHES[k] - counts[k] for k in counts}
-        _fused.LAUNCHES.update(counts)
+        self._launches = [{k: c[k] - n for k, n in was.items()}
+                          for c, was in zip(_COUNTS, counts)]
+        for c, was in zip(_COUNTS, counts):
+            c.update(was)
         self._inputs = inputs
         self._grads = [p.grad for p in self._params]
         self._bound = self._bindings()
@@ -364,8 +370,9 @@ class _CompiledStep:
         for dst, src in zip(self._inputs, inputs):
             dst.copy_(src)
         self.graph.replay()
-        for k, n in self._launches.items():
-            _fused.LAUNCHES[k] += n
+        for c, launched in zip(_COUNTS, self._launches):
+            for k, n in launched.items():
+                c[k] += n
         for p, g in zip(self._params, self._grads):
             p.grad = g
         return self._loss.clone()

@@ -1,14 +1,20 @@
-"""Row gathers with batch dims folded into the row index.
+"""Row gathers with batch dims folded into the row index, and their
+hand-written backward.
 
 Port of ``kaolin_tpu/ops/gather.py``.  The JAX package flattens batched
 gathers into rank-2 row gathers and writes the backward scatter-add by
-hand, because XLA on the TPU lowers both forms slowly.  In PyTorch the row
-gather is ``index_select``, whose backward is that same scatter-add
-(``index_add_``), so the port keeps the functions for their names and
-semantics, not for speed.
+hand as a ``custom_vjp``.  Here :func:`gather_rows` is a
+``torch.autograd.Function`` of the same shape: its forward is the row
+gather (``index_select``, as the JAX forward is XLA's plain
+``table[idx]``), and its backward the scatter-add of the cotangent onto the
+rows, which on the card is kernel E3 (:mod:`kaolin_tpu_torch.ops._scatter`):
+no atomics, the same bits every run, and a time that does not follow the
+longest run of one id.  On the CPU the backward is ``index_add_``.
 """
 
 import torch
+
+from kaolin_tpu_torch.ops import _scatter
 
 __all__ = ['gather_rows', 'flat_index']
 
@@ -30,15 +36,31 @@ def flat_index(batched_idx, num_rows):
     return (per + off).reshape(-1)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` with the scatter-add backward of E3."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _scatter._scatter_rows(g.contiguous(), idx, ctx.num_rows), None
+
+
 def gather_rows(table, idx):
     """Gather rows of a table: ``table[idx]``.
 
     Args:
         table: ``(N, D...)``.
-        idx: ``(P,)`` int row ids in ``[0, N)``.
+        idx: ``(P,)`` int32 or int64 row ids in ``[0, N)``.
 
     Returns:
         ``(P, D...)``; the gradient to ``table`` is the scatter-add of the
-        output's gradient onto the rows, none to ``idx``.
+        output's gradient onto the rows (kernel E3 on the card), none to
+        ``idx``.
     """
-    return table.index_select(0, idx.long())
+    return _GatherRows.apply(table, idx)

@@ -26,6 +26,7 @@ row 0 at the top.
 import torch
 
 from kaolin_tpu_torch._device import entry_device
+from kaolin_tpu_torch.ops.gather import flat_index, gather_rows
 from kaolin_tpu_torch.render.mesh._fused import fused_selection
 
 __all__ = ['rasterize', 'rasterize_selection', 'fused_backend_supported']
@@ -153,7 +154,15 @@ def _bary_weights_gathered(fv, x0, y0, eps):
 
 def _interpolate_selected_batched(face_idx, face_vertices_image_scaled,
                                   face_features, xs, ys, eps):
-    """Batched differentiable epilogue: gather + weights + lerp.
+    """Batched differentiable epilogue: one flat row gather + weights +
+    lerp, as the JAX package computes it.
+
+    The image-space vertices and the features of each face form one
+    ``(B*F, 6 + 3C)`` table, and each pixel gathers its face's row with
+    :func:`~kaolin_tpu_torch.ops.gather.gather_rows` at
+    ``flat_index(max(face_idx, 0), F)``: one scatter in the backward (E3 on
+    the card).  Background pixels gather row ``b*F`` and get zero weights;
+    E3 splits their long run over warps.
 
     face_idx: (B, H, W) int; fvi: (B, F, 3, 2) scaled; features
     (B, F, 3, C).
@@ -163,16 +172,15 @@ def _interpolate_selected_batched(face_idx, face_vertices_image_scaled,
     """
     B, F = face_vertices_image_scaled.shape[:2]
     H, W = face_idx.shape[1:]
+    C = face_features.shape[-1]
     covered = face_idx >= 0                            # (B, H, W)
-    # Background pixels gather some face and get zero weights below.  They
-    # gather faces spread by pixel index, not all face 0: the gather's
-    # backward accumulates the rows of one face serially on the card, and
-    # one face with every background pixel made it ~80 ms of the 512^2 step.
-    spread = torch.arange(H * W, device=face_idx.device).reshape(H, W) % F
-    sel = torch.where(covered, face_idx, spread).long()
-    bidx = torch.arange(B, device=sel.device)[:, None, None]
-    fv = face_vertices_image_scaled[bidx, sel]         # (B, H, W, 3, 2)
-    ff = face_features[bidx, sel]                      # (B, H, W, 3, C)
+    gidx = flat_index(torch.clamp(face_idx, min=0), F)
+    combined = torch.cat(
+        [face_vertices_image_scaled.reshape(B * F, 6),
+         face_features.reshape(B * F, 3 * C)], dim=-1)
+    rows = gather_rows(combined, gidx)                 # (P, 6 + 3C)
+    fv = rows[:, :6].reshape(B, H, W, 3, 2)
+    ff = rows[:, 6:].reshape(B, H, W, 3, C)
     w0, w1, w2 = _bary_weights_gathered(fv, xs[None, None, :],
                                         ys[None, :, None], eps)
     weights = torch.stack([w0, w1, w2], dim=-1)        # (B, H, W, 3)

@@ -1,20 +1,60 @@
 """Render utilities: texture mapping, SH lighting (legacy), vertex prep.
 
-Port of ``kaolin_tpu/render/mesh/utils.py``.  The TPU package samples
-textures with hand-written flat-row gathers and an MXU texture gradient;
-here bilinear sampling is ``grid_sample`` with its own backward, and
-nearest sampling is plain advanced indexing.
+Port of ``kaolin_tpu/render/mesh/utils.py``.  Texture sampling follows the
+JAX package: the batch folded into flat rows of a channels-last texture
+table, nearest sampling through :func:`~kaolin_tpu_torch.ops.gather.
+gather_rows` and bilinear sampling through :func:`_bilinear_sample`, whose
+forward and hand-written backward are the kernels E1 and E2 on the card
+(:mod:`._sample`).
 """
 
 import torch
 import torch.nn.functional as F
 
 from kaolin_tpu_torch._clip import clip
-from kaolin_tpu_torch.render import camera as _camera
 from kaolin_tpu_torch.ops import mesh as _mesh_ops
+from kaolin_tpu_torch.ops.gather import gather_rows
+from kaolin_tpu_torch.render import camera as _camera
+from kaolin_tpu_torch.render.mesh import _sample
+from kaolin_tpu_torch.render.mesh._sample import _flat_corner_idx  # noqa
 
 __all__ = ['texture_mapping', 'spherical_harmonic_lighting',
            'prepare_vertices']
+
+
+class _BilinearSample(torch.autograd.Function):
+    """E1 forward, E2 backward (dT, dx, dy); no gradient to ``hw``."""
+
+    @staticmethod
+    def forward(ctx, tex_rows, x, y, hw):
+        # the kernels take contiguous rows; a one-view texture's rows are a
+        # strided view of its (C, H, W) map
+        tex_rows, x, y = (t.contiguous() for t in (tex_rows, x, y))
+        ctx.hw = hw
+        ctx.save_for_backward(tex_rows, x, y)
+        return _sample._bilinear_forward(tex_rows, x, y, hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        tex_rows, x, y = ctx.saved_tensors
+        dt, dx, dy = _sample._bilinear_backward(tex_rows, x, y,
+                                                g.contiguous(), ctx.hw)
+        return dt, dx, dy, None
+
+
+def _bilinear_sample(tex_rows, x, y, hw):
+    """Bilinear sample of a channels-last texture table.
+
+    tex_rows: (B*H*W, C); x, y: (B*P,) pixel coords (border-padded via
+    index clipping, each corner on its own; align_corners=False
+    unnormalization done by caller).  ``hw`` = (H, W, B, P).
+
+    The backward is hand-written, as the JAX package's: dT by a sum over
+    each texel's taps in a fixed order (no atomics on the card), dx and dy
+    through the lerp weights.  At a texel centre x = 0 the taps are texels
+    0 and 1, so dx = v1 - v0 (the derivative from inside the texture).
+    """
+    return _BilinearSample.apply(tex_rows, x, y, hw)
 
 
 def texture_mapping(texture_coordinates, texture_maps, mode='nearest'):
@@ -36,24 +76,25 @@ def texture_mapping(texture_coordinates, texture_maps, mode='nearest'):
     TH, TW = texture_maps.shape[2:]
     lead_shape = tuple(texture_coordinates.shape[1:-1])
     uv = texture_coordinates.reshape(batch_size, -1, 2)
+    P = uv.shape[1]
     uv = clip(uv, 0., 1.)
     uv = uv * 2. - 1.
-    cx = uv[..., 0]
-    cy = -uv[..., 1]  # flip y
-    if mode == 'bilinear':
-        grid = torch.stack([cx, cy], dim=-1)[:, None]      # (B, 1, P, 2)
-        out = F.grid_sample(texture_maps, grid, mode='bilinear',
-                            padding_mode='border', align_corners=False)
-        out = out[:, :, 0].transpose(1, 2)                  # (B, P, C)
-    elif mode == 'nearest':
-        # floor(x + 0.5), as the JAX package rounds (grid_sample's nearest
-        # rounds half to even)
-        x = (cx + 1.) * TW / 2. - 0.5
-        y = (cy + 1.) * TH / 2. - 0.5
-        xi = torch.clamp(torch.floor(x + 0.5).long(), 0, TW - 1)
-        yi = torch.clamp(torch.floor(y + 0.5).long(), 0, TH - 1)
-        bidx = torch.arange(batch_size, device=uv.device)[:, None]
-        out = texture_maps.permute(0, 2, 3, 1)[bidx, yi, xi]  # (B, P, C)
+    cx = uv[..., 0].reshape(-1)
+    cy = -uv[..., 1].reshape(-1)  # flip y
+    # unnormalize (align_corners=False); the batch folded into flat row ids
+    x = (cx + 1.) * TW / 2. - 0.5
+    y = (cy + 1.) * TH / 2. - 0.5
+    tex_rows = texture_maps.permute(0, 2, 3, 1).reshape(
+        batch_size * TH * TW, num_channels)
+    if mode == 'nearest':
+        # floor(x + 0.5), as the JAX package rounds
+        xi = torch.clamp(torch.floor(x + 0.5).to(torch.int32), 0, TW - 1)
+        yi = torch.clamp(torch.floor(y + 0.5).to(torch.int32), 0, TH - 1)
+        boff = torch.arange(batch_size, dtype=torch.int32,
+                            device=x.device).repeat_interleave(P) * (TH * TW)
+        out = gather_rows(tex_rows, boff + yi * TW + xi)
+    elif mode == 'bilinear':
+        out = _bilinear_sample(tex_rows, x, y, (TH, TW, batch_size, P))
     else:
         raise ValueError(f"unsupported mode {mode!r}")
     return out.reshape((batch_size,) + lead_shape + (num_channels,))

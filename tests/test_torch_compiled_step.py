@@ -29,16 +29,17 @@ steps that building it takes and whose changes it puts back:
   ``numpy``, ``nonzero``, ``argwhere``, ``masked_select``, ``unique``,
   single-argument ``where`` and boolean-mask indexing), except inside the
   kernels' plain versions and the optimizer's step, which the card does
-  not run: it runs K1, K2 and Adam's capturable form, which read nothing;
+  not run: it runs K1, K2, E1-E3 and Adam's capturable form, which read
+  nothing;
 * a call with other shapes, types or devices raises.
 
 Card-only cases (skipped without one): a replay against the eager step
 from the same parameters at ``chip_smoke.py`` phase 4's limits (face ids,
-soft-mask product and loss bit for bit, gradients within 1e-5 * max|g|,
-three steps' losses within rtol 1e-4), two replays counting two K1 and two
-K2 launches, a state loaded after the capture refused, an optimizer that
-is not capturable refused, and the module-route wrappers' messages on a
-wrong type or device.
+soft-mask product, loss and gradients bit for bit,
+three steps' losses within rtol 1e-4), two replays counting two launches
+of each of K1, K2 and E1-E3, a state loaded after the capture refused, an
+optimizer that is not capturable refused, and the module-route wrappers'
+messages on a wrong type or device.
 """
 import contextlib
 import copy
@@ -50,7 +51,9 @@ import pytest
 import torch
 
 from kaolin_tpu_torch.models import inverse_render as MT
+from kaolin_tpu_torch.ops import _scatter as SCT
 from kaolin_tpu_torch.render.mesh import _fused as FT
+from kaolin_tpu_torch.render.mesh import _sample as SAT
 
 H = W = 64
 VIEWS = 2
@@ -59,7 +62,7 @@ LR = 5e-3
 LOSS_RTOL = 1e-5            # test_render_loss_and_grads
 GRAD_REL = 1e-4
 PARAM_ATOL = 2e-5           # test_torch_path_f.py's VERT_ATOL
-REPLAY_GRAD_REL = 1e-5      # chip_smoke.py phase 4
+REPLAY_GRAD_REL = 0.        # chip_smoke.py phase 4: bit-equal
 REPLAY_LOSS_RTOL = 1e-4     # chip_smoke.py STEP0_LOSS_RTOL
 
 # evaluated when the test runs, not at import
@@ -289,8 +292,12 @@ def test_step_reads_nothing_back(scene, monkeypatch, backend):
     step = MT.compiled_step(model, views, faces, face_uvs, images, masks, H,
                             W, opt, backend=backend)
     guard = _HostReads(monkeypatch)
-    for name in ('_fused_forward_torch', '_fused_backward_torch'):
-        monkeypatch.setattr(FT, name, guard.lifting(getattr(FT, name)))
+    for mod, name in ((FT, '_fused_forward_torch'),
+                      (FT, '_fused_backward_torch'),
+                      (SAT, '_bilinear_forward_torch'),
+                      (SAT, '_bilinear_backward_torch'),
+                      (SCT, '_scatter_rows_torch')):
+        monkeypatch.setattr(mod, name, guard.lifting(getattr(mod, name)))
     monkeypatch.setattr(opt, 'step', guard.lifting(opt.step))
     with pytest.raises(AssertionError, match='host read'):
         torch.zeros(3).sum().item()          # the guard is on
@@ -360,12 +367,14 @@ def test_cuda_replays_count_launches(scene):
     model, views, faces, face_uvs, images, masks = _inputs(scene, 'cuda')
     step = MT.compiled_step(model, views, faces, face_uvs, images, masks, H,
                             W, _adam(model, 'cuda'), backend='fused')
-    before = dict(FT.LAUNCHES)
+    counts = (FT.LAUNCHES, SAT.LAUNCHES, SCT.LAUNCHES)
+    before = [dict(c) for c in counts]
     step(views, images, masks)
     step(views, images, masks)
     torch.cuda.synchronize()
-    assert {k: FT.LAUNCHES[k] - before[k] for k in before} == \
-        {'fwd': 2, 'bwd': 2}
+    assert [{k: c[k] - b[k] for k in b} for c, b in zip(counts, before)] == \
+        [{'fwd': 2, 'bwd': 2}, {'sample': 2, 'sample_bwd': 2},
+         {'scatter': 2}]
 
 
 @cuda

@@ -70,16 +70,13 @@ def test_texture_mapping(mode, lead):
     assert out_t.shape == (B,) + lead + (C,)
     np.testing.assert_allclose(out_t, out_j, rtol=0, atol=1e-5)
     # The first texel centre (pixel coordinate exactly 0) is a kink of the
-    # border-padded sample: JAX takes the derivative from inside the
-    # texture, grid_sample's border clip takes 0.  Elsewhere they agree.
+    # border-padded sample: both packages take the derivative from inside
+    # the texture (taps 0 and 1, each corner clipped on its own).
     cuv = np.clip(uv, 0., 1.) * 2. - 1.
     x = (cuv[..., 0] + 1.) * TW / 2. - 0.5
     y = (-cuv[..., 1] + 1.) * TH / 2. - 0.5
     kink = np.stack([x == 0., y == 0.], axis=-1)
     assert kink.any()
-    if mode == 'bilinear':
-        np.testing.assert_array_equal(g_t[0][kink], 0.)
-    g_j[0] = np.where(kink, g_t[0], g_j[0])
     _assert_grads_close(g_j, g_t)
     outside = (uv < 0.) | (uv > 1.)
     assert outside.any()
