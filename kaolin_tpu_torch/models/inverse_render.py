@@ -26,6 +26,7 @@ from kaolin_tpu_torch.render import mesh as mesh_render
 from kaolin_tpu_torch.ops import _scatter
 from kaolin_tpu_torch.render.mesh import _fused, _sample
 from kaolin_tpu_torch.render.mesh.rasterization import _resolve_backend
+from kaolin_tpu_torch.utils.profiler import span
 
 __all__ = ['InverseRender', 'InverseRenderParams', 'CameraViews',
            'make_views', 'render_views', 'render_loss', 'init_params',
@@ -144,7 +145,7 @@ def compute_selection(params, views, faces, height, width, backend='auto',
         the (B, H, W, knum) k-buffer for ``'jnp'``.
     """
     backend = _resolve_backend(backend)
-    with torch.no_grad():
+    with span('dibr.select', params.vertices.device), torch.no_grad():
         face_vertices_camera, face_vertices_image, face_normals = \
             _prepare(params, views, faces)
         if backend == 'fused':
@@ -217,12 +218,13 @@ def render_loss(params, views, faces, face_uvs, target_images, target_masks,
                 height, width, backend='auto', with_soft_mask=True,
                 selection=None, knum=30):
     """Image L1 + silhouette IoU loss."""
-    images, soft_mask, _ = render_views(
-        params, views, faces, face_uvs, height, width, backend=backend,
-        with_soft_mask=with_soft_mask, selection=selection, knum=knum)
-    image_loss = torch.mean(torch.abs(images - target_images))
-    mask_loss = mask_iou(soft_mask, target_masks)
-    return image_loss + mask_loss
+    with span('dibr.render', params.vertices.device):
+        images, soft_mask, _ = render_views(
+            params, views, faces, face_uvs, height, width, backend=backend,
+            with_soft_mask=with_soft_mask, selection=selection, knum=knum)
+        image_loss = torch.mean(torch.abs(images - target_images))
+        mask_loss = mask_iou(soft_mask, target_masks)
+        return image_loss + mask_loss
 
 
 def compiled_step(model, views, faces, face_uvs, target_images, target_masks,
@@ -251,7 +253,12 @@ def compiled_step(model, views, faces, face_uvs, target_images, target_masks,
     place, so a call raises once either was replaced (for example by
     ``load_state_dict``: load before building, or copy into the state).
     Each replay adds the graph's kernel launches to the kernels' counts
-    (``LAUNCHES`` of ``_fused``, ``_sample`` and ``ops/_scatter``).
+    (``LAUNCHES`` of ``_fused``, ``_sample`` and ``ops/_scatter``).  The
+    graph is captured through the step's spans (``dibr.select``,
+    ``dibr.render``, ``autograd.backward``, ``optim.step``; see
+    :func:`~kaolin_tpu_torch.utils.profiler.span`), so every replay runs
+    their 8 empty mark kernels, and a profiler's trace of the replays
+    shows the phases on the card's timeline.
 
     On a CPU model each call runs the same step eagerly.  On either
     device, building takes ``_WARMUP`` eager steps and then puts the
@@ -339,8 +346,11 @@ class _CompiledStep:
         loss = render_loss(self.model, views, faces, face_uvs, inputs[3],
                            inputs[4], height, width, backend=backend,
                            selection=sel, knum=knum)
-        loss.backward()
-        self.optimizer.step()
+        device = self.model.vertices.device
+        with span('autograd.backward', device):
+            loss.backward()
+        with span('optim.step', device):
+            self.optimizer.step()
         return loss.detach(), sel
 
     def _eager(self, inputs):

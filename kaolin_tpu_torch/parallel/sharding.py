@@ -25,6 +25,7 @@ import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from kaolin_tpu_torch._device import entry_device
+from kaolin_tpu_torch.utils.profiler import span
 
 __all__ = ['Mesh', 'make_mesh', 'shard_views', 'replicate',
            'multi_view_grad']
@@ -197,15 +198,18 @@ def multi_view_grad(loss_fn, mesh, axis='data'):
     def fn(params, views):
         leaves, spec = pytree.tree_flatten(params)
         value = loss_fn(params, views)
-        grads = torch.autograd.grad(value, leaves, allow_unused=True)
-        flat = torch.cat([value.detach().reshape(1)] + [
-            (torch.zeros_like(p) if g is None else g).reshape(-1)
-            for p, g in zip(leaves, grads)])
-        mesh.all_reduce(flat, axis)
-        out, start = [], 1
-        for p in leaves:
-            out.append(flat[start:start + p.numel()].view_as(p)
-                       .to(p.dtype))
-            start += p.numel()
-        return flat[0].to(value.dtype), pytree.tree_unflatten(out, spec)
+        with span('autograd.backward', value.device):
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+        with span('parallel.all_reduce', value.device):
+            flat = torch.cat([value.detach().reshape(1)] + [
+                (torch.zeros_like(p) if g is None else g).reshape(-1)
+                for p, g in zip(leaves, grads)])
+            mesh.all_reduce(flat, axis)
+            out, start = [], 1
+            for p in leaves:
+                out.append(flat[start:start + p.numel()].view_as(p)
+                           .to(p.dtype))
+                start += p.numel()
+            loss = flat[0].to(value.dtype)
+        return loss, pytree.tree_unflatten(out, spec)
     return fn

@@ -36,6 +36,7 @@ from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.render.spc import _trace
 from kaolin_tpu_torch.render.spc.raytrace import (inverse_direction,
                                                   voxel_slab)
+from kaolin_tpu_torch.utils.profiler import span
 
 __all__ = ['CoherentHits', 'CellTable', 'build_cell_table',
            'unbatched_raytrace_coherent', 'hits_to_nuggets']
@@ -343,7 +344,8 @@ def _cull_blocks(blo, bhi, origin, direction, rt, cs, segments, ne_cap):
     kept); the non-empty blocks (first ``ne_cap``) are sorted by candidate
     count, descending and stable, and position p in that order gets the
     cell cap of the segment that holds p.  Three stages:
-    :func:`_cull_candidates`, :func:`_order_blocks`, :func:`_gather_inputs`.
+    :func:`_cull_candidates`, :func:`_order_blocks`, :func:`_gather_inputs`,
+    each in its span (``spc.cull``, ``spc.order``, ``spc.gather``).
 
     Returns (rays (nA, rt, 6) f32 [origin, 1 / direction], block_cells
     (nA, ckmax) int32, nb (nA,) int32, block_ids (nA,) int64, saturated
@@ -353,9 +355,12 @@ def _cull_blocks(blo, bhi, origin, direction, rt, cs, segments, ne_cap):
     o = origin.to(torch.float32).reshape(nB, rt, 3)
     d = direction.to(torch.float32).reshape(nB, rt, 3)
     ck_max = segments[0][1]
-    n_b, blk_ids, sat = _cull_candidates(blo, bhi, o, d, cs, ck_max)
-    block_ids, nb, sat_o = _order_blocks(n_b, segments, ck_max, ne_cap)
-    rays, block_cells = _gather_inputs(o, d, blk_ids, block_ids)
+    with span('spc.cull', o.device):
+        n_b, blk_ids, sat = _cull_candidates(blo, bhi, o, d, cs, ck_max)
+    with span('spc.order', o.device):
+        block_ids, nb, sat_o = _order_blocks(n_b, segments, ck_max, ne_cap)
+    with span('spc.gather', o.device):
+        rays, block_cells = _gather_inputs(o, d, blk_ids, block_ids)
     return rays, block_cells, nb, block_ids, sat | sat_o, nB
 
 
@@ -422,8 +427,9 @@ def _trace_cells(cell_table, origin, direction, rays_per_tile, knum,
     args, sat = trace_inputs(cell_table, origin, direction, rays_per_tile,
                              knum, segments, max_super_voxels,
                              max_active_blocks)
-    tns, tfs, pis, cnt = _trace.trace(with_exit=bool(with_exit),
-                                      pidx_offset=pidx_offset, **args)
+    with span('spc.trace', origin.device):
+        tns, tfs, pis, cnt = _trace.trace(with_exit=bool(with_exit),
+                                          pidx_offset=pidx_offset, **args)
     tns, tfs, pis = (x.reshape(-1, args['kbuf'])[:N, :knum]
                      for x in (tns, tfs, pis))
     cnt = cnt.reshape(-1)[:N]
@@ -498,57 +504,59 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
             the card for numpy ones).
     """
     device = entry_device(device, origin, direction, point_hierarchy)
-    pyramid = torch.as_tensor(pyramid)
-    V = int(pyramid[0, level])
-    off = int(pyramid[1, level])
-    origin = torch.as_tensor(origin, device=device)
-    direction = torch.as_tensor(direction, device=device)
-    N = origin.shape[0]
-    RT = int(rays_per_tile)
-    if engine == 'auto':
-        engine = 'mosaic'
-    if engine not in ('mosaic', 'xla'):
-        raise ValueError(f'unknown engine {engine!r}')
-    inv = None
-    if grid_shape is not None:
-        h, w = grid_shape
-        assert h * w == N, (grid_shape, N)
-        perm, inv = grid_order(h, w, RT)
-        origin = origin[torch.as_tensor(perm, device=device)]
-        direction = direction[torch.as_tensor(perm, device=device)]
+    with span('spc.frame', device):
+        pyramid = torch.as_tensor(pyramid)
+        V = int(pyramid[0, level])
+        off = int(pyramid[1, level])
+        origin = torch.as_tensor(origin, device=device)
+        direction = torch.as_tensor(direction, device=device)
+        N = origin.shape[0]
+        RT = int(rays_per_tile)
+        if engine == 'auto':
+            engine = 'mosaic'
+        if engine not in ('mosaic', 'xla'):
+            raise ValueError(f'unknown engine {engine!r}')
+        inv = None
+        if grid_shape is not None:
+            h, w = grid_shape
+            assert h * w == N, (grid_shape, N)
+            perm, inv = grid_order(h, w, RT)
+            origin = origin[torch.as_tensor(perm, device=device)]
+            direction = direction[torch.as_tensor(perm, device=device)]
 
-    if engine == 'mosaic':
-        if cell_table is None:
-            cell_table = build_cell_table(
-                torch.as_tensor(point_hierarchy, device=device), pyramid,
-                level)
-        # K3 writes the final pidx: the leaf index + the level's offset
-        tns, tfs, pis, cnt, sat = _trace_cells(
-            cell_table, origin, direction, RT, knum, segments,
-            max_super_voxels, max_active_blocks, with_exit, pidx_offset=off)
-    else:
-        origin, direction = _pad_rays(origin, direction, RT)
-        nB = origin.shape[0] // RT
-        leaf = torch.as_tensor(point_hierarchy, device=device)[
-            off:off + V].to(torch.int32)
-        vpad = (-V) % 64
-        leaf = torch.cat([leaf, leaf.new_full((vpad, 3), -1)])
-        M = leaf.shape[0] // 64
-        CK = min(max(1, -(-int(max_tile_voxels) // 64)), M)
-        if max_super_voxels is None:
-            max_super_voxels = 8 * CK * 64
-        CS = min(max(CK, -(-int(max_super_voxels) // 64)), M)
-        if block_group is None:
-            block_group = max(1, (4 << 20) // (RT * CK * 64))
-        tns, tfs, pis, cnt, sat = _raster_trace(
-            leaf, origin, direction, int(level), RT, CK, CS, int(knum),
-            min(int(block_group), nB))
-        tns, tfs, pis, cnt = tns[:N], tfs[:N], pis[:N], cnt[:N]
-        pis = torch.where(pis >= 0, pis + off, -1)
-    if inv is not None:
-        iv = torch.as_tensor(inv, device=device)
-        tns, tfs, pis, cnt = tns[iv], tfs[iv], pis[iv], cnt[iv]
-    return CoherentHits(tns, tfs, pis, cnt, sat)
+        if engine == 'mosaic':
+            if cell_table is None:
+                cell_table = build_cell_table(
+                    torch.as_tensor(point_hierarchy, device=device), pyramid,
+                    level)
+            # K3 writes the final pidx: the leaf index + the level's offset
+            tns, tfs, pis, cnt, sat = _trace_cells(
+                cell_table, origin, direction, RT, knum, segments,
+                max_super_voxels, max_active_blocks, with_exit,
+                pidx_offset=off)
+        else:
+            origin, direction = _pad_rays(origin, direction, RT)
+            nB = origin.shape[0] // RT
+            leaf = torch.as_tensor(point_hierarchy, device=device)[
+                off:off + V].to(torch.int32)
+            vpad = (-V) % 64
+            leaf = torch.cat([leaf, leaf.new_full((vpad, 3), -1)])
+            M = leaf.shape[0] // 64
+            CK = min(max(1, -(-int(max_tile_voxels) // 64)), M)
+            if max_super_voxels is None:
+                max_super_voxels = 8 * CK * 64
+            CS = min(max(CK, -(-int(max_super_voxels) // 64)), M)
+            if block_group is None:
+                block_group = max(1, (4 << 20) // (RT * CK * 64))
+            tns, tfs, pis, cnt, sat = _raster_trace(
+                leaf, origin, direction, int(level), RT, CK, CS, int(knum),
+                min(int(block_group), nB))
+            tns, tfs, pis, cnt = tns[:N], tfs[:N], pis[:N], cnt[:N]
+            pis = torch.where(pis >= 0, pis + off, -1)
+        if inv is not None:
+            iv = torch.as_tensor(inv, device=device)
+            tns, tfs, pis, cnt = tns[iv], tfs[iv], pis[iv], cnt[iv]
+        return CoherentHits(tns, tfs, pis, cnt, sat)
 
 
 def hits_to_nuggets(hits, trim=True):

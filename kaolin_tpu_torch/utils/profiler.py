@@ -2,17 +2,46 @@
 
 Port of ``kaolin_tpu/utils/profiler.py``: a timer that waits for the
 device's work, a micro-benchmark timed by CUDA events on the card (the
-host clock on the CPU) and a ``torch.profiler`` trace context.
+host clock on the CPU), a ``torch.profiler`` trace context, and the spans
+the port opens where its work happens (:func:`span`).
+
+An operator who wants to see where a fit's step or a trace's frame spends
+its time wraps the loop in :func:`trace`::
+
+    with profiler.trace('log/fit'):
+        for k in range(20):
+            step(views, images, masks)
+
+The trace then shows, on the host's timeline, a user annotation for each
+span of :data:`SPANS` the loop passed through (the DIB-R step's selection,
+render and loss, backward and optimizer step; the SPC frame's culling,
+block order, gathers and trace), with the runtime's calls inside them
+(``cudaStreamSynchronize`` where the host waits for the card), and on the
+card's timeline a pair of empty kernels ``kt_span_begin_<slug>`` /
+``kt_span_end_<slug>`` (the span's name with ``.`` as ``_``) around each
+span's device work.  Every device op between a begin mark and its end
+mark, in stream order, belongs to that span, also in a CUDA graph's
+replay, which no host span reaches: the compiled step's graph (``models/inverse_render.py::compiled_step``) holds its phases'
+marks, so a trace of its replays shows them.
 """
 
 import contextlib
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from kaolin_tpu_torch._device import entry_device
 
-__all__ = ['Timer', 'benchmark', 'trace']
+__all__ = ['Timer', 'benchmark', 'trace', 'span', 'SPANS']
+
+# the spans, in the order of csrc/spans.cu's KT_SPANS list (a mark's id is
+# its index here)
+SPANS = ('dibr.select', 'dibr.render', 'autograd.backward', 'optim.step',
+         'parallel.all_reduce', 'spc.frame', 'spc.cull', 'spc.order',
+         'spc.gather', 'spc.trace')
+_MARK_IDS = {name: k for k, name in enumerate(SPANS)}
+_OFF = contextlib.nullcontext()
 
 
 def _cuda_devices(out):
@@ -119,3 +148,87 @@ def trace(log_dir):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def span(name, device=None):
+    """The span ``name`` (one of :data:`SPANS`) around the work of a
+    ``with`` block, on ``device`` (a ``torch.device``; None: the host only).
+
+    While a ``torch.profiler`` records, the span opens
+    ``torch.profiler.record_function(name)``: a user annotation on the
+    host's timeline.  On a CUDA ``device``, while a profiler records or
+    the current stream is being captured into a CUDA graph, it also
+    launches an empty kernel ``kt_span_begin_<slug>`` on the current
+    stream at entry and ``kt_span_end_<slug>`` at exit (``<<<1, 1>>>``,
+    from ``csrc/spans.cu``), so a graph captured through the span replays
+    its marks on every replay.  The first span on a CUDA device builds and
+    loads the marks there, recording or not: a path's warm-up passes
+    through its spans, so neither a capture nor a traced block holds the
+    load.  Otherwise a span costs flag checks and returns a context that
+    does nothing.  The marks change no result: they read and write
+    nothing.
+    """
+    if name not in _MARK_IDS:
+        raise ValueError(f'no span {name!r}: the spans are {SPANS}')
+    recording = _autograd_profiler._is_profiler_enabled
+    index = None
+    if device is not None and device.type == 'cuda':
+        index = _index(device)
+        if index not in _loaded:
+            _load_marks(index)
+        if not (recording or torch.cuda.is_current_stream_capturing()):
+            index = None
+    if not (recording or index is not None):
+        return _OFF
+    return _Span(name, recording, index)
+
+
+class _Span:
+    """What :func:`span` returns while it records or marks (on the CUDA
+    device ``index``, where it is not None)."""
+
+    __slots__ = ('_host', '_mark', '_index')
+
+    def __init__(self, name, recording, index):
+        self._host = None
+        if recording:
+            self._host = _autograd_profiler.record_function(name)
+        self._mark = None if index is None else _MARK_IDS[name]
+        self._index = index
+
+    def __enter__(self):
+        if self._host is not None:
+            self._host.__enter__()
+        if self._mark is not None:
+            _marks.mark(self._mark, 0, _stream(self._index))
+        return self
+
+    def __exit__(self, *exc):
+        if self._mark is not None:
+            _marks.mark(self._mark, 1, _stream(self._index))
+        if self._host is not None:
+            self._host.__exit__(*exc)
+        return False
+
+
+_marks = _stream = None     # the extension module, the stream getter
+_loaded = set()             # the CUDA devices whose marks are loaded
+
+
+def _index(device):
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def _load_marks(index):
+    """Build (once a checkout) and load the mark kernels on the CUDA
+    device ``index``: a lazily loaded module would otherwise be loaded at
+    its first launch, which may fall in a capture."""
+    global _marks, _stream
+    if _marks is None:
+        from kaolin_tpu_torch import _cuda
+        _stream = _cuda.stream_getter()
+        _marks = _cuda.load_module('spans')
+    with torch.cuda.device(index):
+        _marks.load()
+    _loaded.add(index)
