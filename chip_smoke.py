@@ -51,7 +51,9 @@ sphere scaled to radius 0.45 (~1.0M voxels at level 10):
    (``unbatched_mesh_to_spc_device`` -> ``scan_octrees`` ->
    ``generate_points`` -> ``build_cell_table`` ->
    ``unbatched_raytrace_coherent`` -> ``hits_to_nuggets`` ->
-   ``exponential_integration``), with K3's launch count read around it;
+   ``exponential_integration``), with the launch counts of K3 and of the
+   culling kernel C1 (``spc_cull_kernel``) read around it, C1's launch
+   held bit for bit against its plain version on the inputs it was given;
    every live pidx must lie in the leaf level (K3 adds the level's offset);
 7. K3 against its plain version on every active block of the scene, with
    pidx offset 0 and with the level's; the main path's hits against the
@@ -63,7 +65,8 @@ sphere scaled to radius 0.45 (~1.0M voxels at level 10):
    with no candidate cell; both offsets, with and without exit depths;
 9. the whole trace against the port's BFS on the 1,048,576 rays;
 10. times of the trace, of the trace with the offset pass after K3, of K3,
-    the cell table, the mesh-to-octree build and the BFS.
+    of C1 and its plain version on the main path's inputs, the cell table,
+    the mesh-to-octree build and the BFS.
 
 The probes of K3 and of the card (``kaolin_tpu_torch.probes``, the port of
 the TPU probe scripts), each driven through its entry point ``run`` with
@@ -120,7 +123,8 @@ sphere's level-10 octree:
     -> ``hits_to_nuggets`` -> ``unbatched_interpolate_trilinear`` at each
     nugget's mid depth -> ``exponential_integration`` (channels 0-2 colour,
     3 optical thickness) -> L1 against a target from other features ->
-    backward -> 5 Adam steps, K3's launches counted around them; K3 against
+    backward -> 5 Adam steps, K3's and C1's launches counted around them,
+    each C1 launch held bit for bit against its plain version; K3 against
     its plain version on the camera's own rays (bit for bit), the trace
     against the BFS, step 0 at 128^2 against the CPU; times (step, trace,
     interpolation, integration, backward, K3 alone on pinhole rays), peak
@@ -224,7 +228,8 @@ in the SPC example):
     8 rotate / zoom events and 4 moves, the first frame's K1 launch held
     against plain; the five examples' ``main([...])`` on the card at
     ``tests/test_examples.py``'s sizes, every K1, K2, K3 and E1-E3 launch
-    they make held against its plain version on the inputs it was given.
+    they make held against its plain version on the inputs it was given
+    (C1's too).
 
 The multi-GPU DIB-R step of BASELINE config #5 (``kaolin_tpu_torch.parallel``
 on ``torch.distributed``; K1/K2 on every rank):
@@ -309,6 +314,7 @@ from kaolin_tpu_torch.render.mesh import (deftet_sparse_render,
 from kaolin_tpu_torch.render.spc import (
     _trace, exponential_integration, hits_to_nuggets, mark_pack_boundaries,
     unbatched_raytrace)
+from kaolin_tpu_torch.render.spc import raster as RS
 from kaolin_tpu_torch.render.spc.raster import (
     _beam_bounds, _beam_chunk_test, _block_order, _pad_rays,
     build_cell_table, grid_order, trace_inputs, unbatched_raytrace_coherent)
@@ -441,6 +447,9 @@ K2_FLOPS = 125        # (face, pixel) in the bbox where g*prod != 0: the
 E1_FLOPS = 11         # (pixel, channel): 4 taps x 2 products, 3 sums
 E2_FLOPS = 22         # (pixel, channel): dx, dy (12) and 4 taps x (w * g, +)
 E3_FLOPS = 1          # (row, column): one sum
+# float32 operations per (beam, box) test of C1, counted from
+# csrc/spc_cull.cu: per axis two subtractions, two divisions, two max, two min
+C1_FLOPS = 24
 # the TPU kernels the probes replace (def lines in the scripts)
 P1_LINES = dict(kA=61, kB=73, kC=97, kD=119, kE=144, kF=153, kG=162, kH=174)
 # acceptance limits
@@ -1219,27 +1228,30 @@ def spc_build(fv, dev):
 
 def spc_main_path(fv, dev):
     """The SPC pipeline through its entry points, from the mesh to a per-ray
-    opacity; K3's launch count is read around it."""
+    opacity; K3's and C1's launch counts are read around it, and C1's
+    launch is held against its plain version on the inputs it was given."""
     fv_d = torch.as_tensor(fv, device=dev)
     o, d = camera_rays(dev)
     torch.cuda.synchronize()
-    _trace.LAUNCHES['trace'] = 0
-    octree, _, _, _ = unbatched_mesh_to_spc_device(fv_d, SPC_LEVEL,
-                                                   cap=SPC_CAPS[0])
-    max_level, pyramids, exsum = scan_octrees(octree, [octree.shape[0]])
-    ph = generate_points(octree, pyramids, exsum)
-    table = build_cell_table(ph, pyramids[0], SPC_LEVEL, **CELLS)
-    hits = unbatched_raytrace_coherent(octree, ph, pyramids[0], exsum, o, d,
-                                       SPC_LEVEL, engine='mosaic',
-                                       cell_table=table, **TRACE)
-    ridx, pidx, _ = hits_to_nuggets(hits)
-    first = mark_pack_boundaries(ridx)
-    ones = torch.ones((ridx.shape[0], 1), device=dev)
-    per_ray, _ = exponential_integration(ones, TAU * ones, first)
-    opacity = torch.zeros(o.shape[0], device=dev)
-    opacity[ridx[first].long()] = per_ray[:, 0]
-    torch.cuda.synchronize()
-    launches = _trace.LAUNCHES['trace']
+    zero_launches(('trace', 'cull'))
+    with kept_launches(('cull',)) as kept:
+        octree, _, _, _ = unbatched_mesh_to_spc_device(fv_d, SPC_LEVEL,
+                                                       cap=SPC_CAPS[0])
+        max_level, pyramids, exsum = scan_octrees(octree, [octree.shape[0]])
+        ph = generate_points(octree, pyramids, exsum)
+        table = build_cell_table(ph, pyramids[0], SPC_LEVEL, **CELLS)
+        hits = unbatched_raytrace_coherent(octree, ph, pyramids[0], exsum, o,
+                                           d, SPC_LEVEL, engine='mosaic',
+                                           cell_table=table, **TRACE)
+        ridx, pidx, _ = hits_to_nuggets(hits)
+        first = mark_pack_boundaries(ridx)
+        ones = torch.ones((ridx.shape[0], 1), device=dev)
+        per_ray, _ = exponential_integration(ones, TAU * ones, first)
+        opacity = torch.zeros(o.shape[0], device=dev)
+        opacity[ridx[first].long()] = per_ray[:, 0]
+        torch.cuda.synchronize()
+    launches = read_launches(('trace', 'cull'))
+    held, err = hold_against_plain(kept, 'SPC main path')
 
     pyr = pyramids[0]
     V, off = int(pyr[0, SPC_LEVEL]), int(pyr[1, SPC_LEVEL])
@@ -1252,7 +1264,9 @@ def spc_main_path(fv, dev):
           f'{o.shape[0]} rays, {int(hit.sum())} hit, {int(cnt.sum())} hits, '
           f'max {int(cnt.max())} per ray, saturated {bool(hits.saturated)}; '
           f'opacity max|d| from 1 - exp(-{TAU:g} count) {op_err:.2e} '
-          f'(limit {OPACITY_ATOL:g}); K3 launches {launches}')
+          f'(limit {OPACITY_ATOL:g}); K3 launches {launches["trace"]}, C1 '
+          f'launches {launches["cull"]}, held against plain bit for bit '
+          f'{held["cull"]} (max|d| {err["cull"]})')
     _check(max_level == SPC_LEVEL, 'octree depth')
     _check(table.overflow == 0, 'cell table overflow 0')
     _check(not bool(hits.saturated), 'the sphere trace does not saturate')
@@ -1266,9 +1280,13 @@ def spc_main_path(fv, dev):
     _check(pidx.shape[0] == int(cnt.sum()), 'nuggets = hits')
     _check(torch.equal(opacity > 0, hit), 'opacity > 0 exactly where hit')
     _check(op_err <= OPACITY_ATOL, 'opacity')
-    _check(launches >= 1, 'K3 launched on the main path')
+    _check(launches['trace'] >= 1, 'K3 launched on the main path')
+    _check(launches['cull'] == held['cull'] == 1,
+           'C1 launched once on the main path, and held against plain')
     return dict(octree=octree, pyramid=pyr, exsum=exsum, ph=ph, table=table,
-                o=o, d=d, hits=hits, launches=launches, fv=fv_d)
+                o=o, d=d, hits=hits, launches=launches['trace'], fv=fv_d,
+                cull_launches=launches['cull'], cull_err=err['cull'],
+                cull_args=kept['cull'][0][0])
 
 
 def _trace_args(spc, knum):
@@ -1478,6 +1496,16 @@ def spc_times(spc, args, card):
         with_exit=False, pidx_offset=off, **args), 20)
     k3_plain_ms = time_ms(lambda: _trace._trace_torch(
         with_exit=False, pidx_offset=off, **args), 2)
+    cull = spc['cull_args']
+    saved = read_launches(('cull',))
+    c1_ms = time_ms(lambda: RS._cull_candidates_cuda(*cull), 20)
+    c1_plain_ms = time_ms(lambda: RS._cull_candidates_torch(*cull), 3)
+    COUNTS['cull'].update(saved)      # these launches are not path launches
+    blo, _, o, _, cs, ck_max = cull
+    nB, rt = o.shape[:2]
+    Mc = blo.shape[0] - 1
+    c1_bytes = nB * rt * 24 + nB * (ck_max * 4 + 8) + (Mc + 1) * 24
+    c1_flops = C1_FLOPS * (nB // 64 * Mc + nB * cs)
     table_ms = time_ms(lambda: build_cell_table(
         spc['ph'], spc['pyramid'], SPC_LEVEL, **CELLS), 5)
     build_ms = time_ms(lambda: unbatched_mesh_to_spc_device(
@@ -1493,13 +1521,21 @@ def spc_times(spc, args, card):
     print(f'[{card}] K3 spc_trace_kernel {k3_ms:.4f} ms (into allocated '
           f'outputs; {k3_alloc_ms:.4f} ms with their allocation and fill), '
           f'plain {k3_plain_ms:.4f} ms')
+    c1_bound = _bound(c1_bytes, c1_flops)
+    print(f'[{card}] C1 spc_cull_kernel on the main path\'s inputs ({nB} '
+          f'blocks of {rt} rays, {Mc} cells, cs {cs}, ck_max {ck_max}): '
+          f'{c1_ms:.4f} ms with its outputs\' allocation, plain '
+          f'{c1_plain_ms:.4f} ms; bound {c1_bound["bound_ms"]:.4f} ms '
+          f'({c1_bound["bound_by"]}: {c1_bytes} bytes, {c1_flops} flops of '
+          f'the (beam, box) tests with no early exit)')
     print(f'[{card}] build_cell_table {table_ms:.3f} ms; '
           f'unbatched_mesh_to_spc_device (level {SPC_LEVEL}, cap '
           f'2^{SPC_CAPS[0].bit_length() - 1}) {build_ms:.3f} ms; BFS '
           f'unbatched_raytrace {bfs_ms:.3f} ms')
     print(f'[{card}] peak device memory so far '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB')
-    return dict(trace_ms=trace_ms, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms)
+    return dict(trace_ms=trace_ms, k3_ms=k3_ms, k3_plain_ms=k3_plain_ms,
+                c1_ms=c1_ms, c1_plain_ms=c1_plain_ms, c1_bound=c1_bound)
 
 
 def dibr_work(scene, inputs, g_prod):
@@ -2246,17 +2282,23 @@ def path_a(fv, dev, card):
     opt = torch.optim.Adam([feats], lr=FEAT_LR)
     losses = []
     torch.cuda.synchronize()
-    _trace.LAUNCHES['trace'] = 0
-    for _ in range(STEPS):
-        loss, hits = nglod_step(scene, camera, feats, target)
-        opt.step()
-        losses.append(loss.item())
-    torch.cuda.synchronize()
-    launches = _trace.LAUNCHES['trace']
+    zero_launches(('trace', 'cull'))
+    with kept_launches(('cull',)) as kept:
+        for _ in range(STEPS):
+            loss, hits = nglod_step(scene, camera, feats, target)
+            opt.step()
+            losses.append(loss.item())
+        torch.cuda.synchronize()
+    launches, cull = read_launches(('trace', 'cull')).values()
+    held, cull_err = hold_against_plain(kept, 'path A')
     print(f'path A, {STEPS} Adam steps (lr {FEAT_LR:g}): L1 '
           + ', '.join(f'{x:.7f}' for x in losses)
-          + f'; K3 launches {launches}')
+          + f'; K3 launches {launches}; C1 launches {cull}, held against '
+          f'plain bit for bit {held["cull"]} (rays_per_tile '
+          f'{kept["cull"][0][0][2].shape[1]}, ck_max {kept["cull"][0][0][5]})')
     _check(launches >= STEPS, 'K3 launched on every path A step')
+    _check(cull == held['cull'] == STEPS,
+           'C1 launched on every path A step, and held against plain')
     _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
            'path A: the loss falls')
 
@@ -2337,7 +2379,8 @@ def path_a(fv, dev, card):
     idle = step_profile(lambda: nglod_step(scene, camera, feats, target),
                         card)
     return dict(launches=launches, k3_ms=k3[False], k3_exit_ms=k3[True],
-                k3_err=err, step_ms=step_ms, idle=idle)
+                k3_err=err, step_ms=step_ms, idle=idle, cull_launches=cull,
+                cull_err=cull_err['cull'])
 
 
 # ---------------------------------------------------------------------------
@@ -3793,7 +3836,8 @@ HELD = {'fwd': (FU, '_fused_forward_cuda', FU._fused_forward_torch),
         'sample': (SA, '_bilinear_forward_cuda', SA._bilinear_forward_torch),
         'sample_bwd': (SA, '_bilinear_backward_cuda',
                        SA._bilinear_backward_torch),
-        'scatter': (SC, '_scatter_rows_cuda', SC._scatter_rows_torch)}
+        'scatter': (SC, '_scatter_rows_cuda', SC._scatter_rows_torch),
+        'cull': (RS, '_cull_candidates_cuda', RS._cull_candidates_torch)}
 EPILOGUE = ('sample', 'sample_bwd', 'scatter')      # E1, E2, E3
 DIBR_KERNELS = ('fwd', 'bwd') + EPILOGUE
 # each LAUNCHES key's count dictionary
@@ -3818,15 +3862,16 @@ def _clone(x):
 
 
 @contextlib.contextmanager
-def kept_launches():
+def kept_launches(keys=tuple(HELD)):
     """Within the block, keep the inputs and the outputs of every launch
-    of K1, K2, K3 and E1-E3, by LAUNCHES key, for :func:`hold_against_plain`:
-    (args, kwargs, outputs, captured).  A launch captured in a CUDA graph
-    (``captured`` True) is kept by copies captured with it, so after each
-    replay they hold that replay's inputs and outputs.  The launches
+    of the kernels ``keys`` (by LAUNCHES key; all: K1, K2, K3, E1-E3 and
+    C1), for :func:`hold_against_plain`: (args, kwargs, outputs,
+    captured).  A launch captured in a CUDA graph (``captured`` True) is
+    kept by copies captured with it, so after each replay they hold that
+    replay's inputs and outputs.  The launches
     themselves, and their counts, are the caller's."""
     kept = {k: [] for k in HELD}
-    launch = {k: getattr(mod, attr) for k, (mod, attr, _) in HELD.items()}
+    launch = {k: getattr(*HELD[k][:2]) for k in keys}
 
     def keeping(key):
         def run(*args, **kw):
@@ -3837,13 +3882,13 @@ def kept_launches():
             return out
         return run
 
-    for key, (mod, attr, _) in HELD.items():
-        setattr(mod, attr, keeping(key))
+    for key in keys:
+        setattr(*HELD[key][:2], keeping(key))
     try:
         yield kept
     finally:
-        for key, (mod, attr, _) in HELD.items():
-            setattr(mod, attr, launch[key])
+        for key in keys:
+            setattr(*HELD[key][:2], launch[key])
 
 
 def _epilogue_err(key, out_k, out_p):
@@ -3874,8 +3919,8 @@ def hold_against_plain(kept, what):
     inputs, with phases 2-3 and 7's limits: K1 face ids (share differing)
     and prod, K2 the gradient relative to its largest, K3 every output
     bitwise; E1 within E1_MAX, E2 (dT, dx, dy) and E3 within E_REL_MAX of
-    each output's largest.  Returns ({key: launches held}, {key: max abs
-    error})."""
+    each output's largest; C1 (n_b, blk_ids, sat) bit for bit.  Returns
+    ({key: launches held}, {key: max abs error})."""
     err = {k: 0. for k in HELD}
     for args, kw, (fid_k, prod_k), _ in kept['fwd']:
         fid_p, prod_p = HELD['fwd'][2](*args, **kw)
@@ -3899,6 +3944,14 @@ def hold_against_plain(kept, what):
         for args, kw, out_k, _ in kept[key]:
             out_p = HELD[key][2](*args, **kw)
             err[key] = max(err[key], _epilogue_err(key, out_k, out_p))
+    for args, kw, out_k, _ in kept['cull']:
+        out_p = HELD['cull'][2](*args, **kw)
+        d = max((a.long() - b.long()).abs().max().item() if a.numel() else 0
+                for a, b in zip(out_k, out_p))
+        same_types = all(a.dtype == b.dtype for a, b in zip(out_k, out_p))
+        _check(d == 0 and same_types,
+               f'{what}: C1 against plain (n_b, blk_ids, sat max|d| {d})')
+        err['cull'] = max(err['cull'], d)
     return {k: len(v) for k, v in kept.items()}, err
 
 
@@ -4100,6 +4153,7 @@ def path_g(dev, card):
     return dict(launches=launches, examples=ex_launches,
                 k1_err=max(k1_err, viewer_err, ex_err['fwd']),
                 k2_err=max(k2_err, ex_err['bwd']), k3_err=ex_err['trace'],
+                cull_err=ex_err['cull'],
                 epi_err={k: max(fit_err[k], ex_err[k]) for k in EPILOGUE},
                 step_ms=step_ms, idle=idle, peak=peak)
 
@@ -4438,6 +4492,7 @@ def main():
           f'K2 {k2_b} bytes, {k2_f} flops ({k2_f // K2_FLOPS} (face, pixel) '
           f'pairs); K3 {k3_b} bytes, {k3_f} flops')
     spc_launches = spc['launches']
+    c1_launches, c1_err = spc['cull_launches'], spc['cull_err']
     del spc, dense_args, scene, inputs, g_prod, fid, prod, args
     torch.cuda.empty_cache()
 
@@ -4525,6 +4580,19 @@ def main():
              **_bound(k3_b, k3_f), library_ms=None,
              pinhole_ms=path_a_out['k3_ms'],
              pinhole_exit_ms=path_a_out['k3_exit_ms']),
+        dict(name='spc_cull_kernel', route='cuda',
+             source='kaolin_tpu_torch/csrc/spc_cull.cu',
+             replaces='kaolin_tpu/render/spc/raster.py:710 (jnp, no Pallas '
+                      'kernel)',
+             launches=(c1_launches + path_a_out['cull_launches']
+                       + path_g_out['examples']['cull']),
+             path_launches={'spc_main': c1_launches,
+                            'path_a': path_a_out['cull_launches'],
+                            'examples': path_g_out['examples']['cull']},
+             max_abs_err=max(c1_err, path_a_out['cull_err'],
+                             path_g_out['cull_err']),
+             ms=ts['c1_ms'], plain_ms=ts['c1_plain_ms'], **ts['c1_bound'],
+             library_ms=None),
     ]
     # E1-E3: the DIB-R step's epilogue and its backward, on every path
     # that renders through rasterize's epilogue and texture_mapping

@@ -12,11 +12,13 @@ Two engines, with the JAX package's names:
 
 * ``'mosaic'`` (the default for every device): voxels binned by their
   level-(L - cell_shift) ancestor cells (:func:`build_cell_table`).
-  Super-tiles cull all cells, blocks refine their super-tile's list, the
-  non-empty blocks are sorted by candidate count, and kernel K3
-  (:mod:`._trace`) traces them in one launch, writing each block's rows
-  straight to its place.  On CUDA tensors K3 is the CUDA kernel; on CPU
-  tensors its plain PyTorch version.  The segment caps of the JAX engine
+  Super-tiles cull all cells, blocks refine their super-tile's list
+  (:func:`_cull_candidates`), the non-empty blocks are sorted by candidate
+  count, and kernel K3 (:mod:`._trace`) traces them in one launch, writing
+  each block's rows straight to its place.  On CUDA tensors the culling's
+  first stage is one launch of ``spc_cull_kernel`` (``csrc/spc_cull.cu``,
+  counted in ``LAUNCHES['cull']``) and K3 the CUDA kernel; on CPU tensors
+  each is its plain PyTorch version.  The segment caps of the JAX engine
   are kept for what they mean (a block's candidate cells are cut to its
   segment's cap, and the cut flags saturation); the TPU's per-segment
   launches, cell-row pre-gather and scatter-back are not needed.
@@ -39,10 +41,11 @@ from kaolin_tpu_torch.render.spc.raytrace import (inverse_direction,
 from kaolin_tpu_torch.utils.profiler import span
 
 __all__ = ['CoherentHits', 'CellTable', 'build_cell_table',
-           'unbatched_raytrace_coherent', 'hits_to_nuggets']
+           'unbatched_raytrace_coherent', 'hits_to_nuggets', 'LAUNCHES']
 
 _INF = float('inf')
 _BIG = 4.                       # bounds of empty chunks / the dump cell
+LAUNCHES = {'cull': 0}          # launches of the culling kernel
 
 
 class CoherentHits(NamedTuple):
@@ -273,14 +276,9 @@ def build_cell_table(point_hierarchy, pyramid, level, cell_shift=3,
     return CellTable(rows, blo, bhi, int(level), off, overflow)
 
 
-def _cull_candidates(blo, bhi, o, d, cs, ck_max):
-    """Culling, first stage: beam boxes, super-tile x cell test (first
-    ``cs`` kept), block x candidate test (first ``ck_max`` kept).
-
-    o/d (nB, rt, 3) f32 with nB a whole number of super-tiles.  Returns
-    (n_b (nB,) candidate count per block, blk_ids (nB, ck_max) int64 cell
-    ids padded with Mc, saturated () bool tensor).
-    """
+def _cull_candidates_torch(blo, bhi, o, d, cs, ck_max):
+    """Plain PyTorch version of :func:`_cull_candidates` (same arguments
+    and outputs)."""
     nB = o.shape[0]
     nS = nB // 64
     Mc = blo.shape[0] - 1
@@ -298,7 +296,69 @@ def _cull_candidates(blo, bhi, o, d, cs, ck_max):
     sat |= (n_b > ck_max).any()
     gids = sup_ids[:, None].expand(nS, 64, cs).reshape(nB, cs)
     blk_ids = _first_k(cand_b, ck_max, Mc, ids=gids)           # (nB, ck_max)
-    return n_b, blk_ids, sat
+    return n_b, blk_ids.to(torch.int32), sat
+
+
+_ext = _stream = None       # the extension module, the stream getter
+
+
+def _bind():
+    global _ext, _stream
+    if _ext is None:
+        from kaolin_tpu_torch import _cuda
+        _stream = _cuda.stream_getter()
+        _ext = _cuda.load_module('spc_cull')
+    return _ext
+
+
+def _cull_refused(blo, bhi, o, d):
+    """Raise for inputs the extension refused: the first that fails
+    ``_trace._check``, else the sizes the kernel takes."""
+    nB, rt = o.shape[:2]
+    _trace._check('blo', blo, torch.float32, (blo.shape[0], 3), o.device)
+    _trace._check('bhi', bhi, torch.float32, tuple(blo.shape), o.device)
+    _trace._check('o', o, torch.float32, (nB, rt, 3), o.device)
+    _trace._check('d', d, torch.float32, (nB, rt, 3), o.device)
+    raise ValueError('spc_cull_kernel takes cs, ck_max >= 0 and indexes with '
+                     'ints: blk_ids and the super-tiles\' lists must hold '
+                     'fewer than 2^31 elements, and the cell table at least '
+                     'its dump row')
+
+
+def _cull_candidates_cuda(blo, bhi, o, d, cs, ck_max):
+    """Launch ``spc_cull_kernel`` (``csrc/spc_cull.cu``) and add one to
+    ``LAUNCHES['cull']``; same contract as the plain version."""
+    nB, rt = o.shape[:2]
+    if not 1 <= rt <= _trace._MAX_RT or nB % 64:
+        raise ValueError(
+            f'spc_cull_kernel (one ray per lane, 64 blocks a super-tile) '
+            f'takes 1 <= rays_per_tile <= {_trace._MAX_RT} and a whole '
+            f'number of super-tiles; got rays_per_tile={rt}, {nB} blocks')
+    out = (_ext or _bind()).cull(blo, bhi, o, d, int(cs), int(ck_max),
+                                 _stream(o.get_device()))
+    if out is None:
+        _cull_refused(blo, bhi, o, d)
+    if nB:
+        LAUNCHES['cull'] += 1
+    return out
+
+
+def _cull_candidates(blo, bhi, o, d, cs, ck_max):
+    """Culling, first stage: beam boxes, super-tile x cell test (first
+    ``cs`` kept), block x candidate test (first ``ck_max`` kept).
+
+    o/d (nB, rt, 3) f32 with nB a whole number of super-tiles.  Returns
+    (n_b (nB,) int64 candidate count per block, over its super-tile's whole
+    list; blk_ids (nB, ck_max) int32 cell ids padded with Mc; saturated ()
+    bool tensor).  CPU tensors run :func:`_cull_candidates_torch`; CUDA
+    tensors launch ``spc_cull_kernel`` (the same outputs bit for bit) or
+    raise.
+    """
+    if o.device.type == 'cpu':
+        return _cull_candidates_torch(blo, bhi, o, d, cs, ck_max)
+    if o.device.type != 'cuda':
+        raise ValueError(f'no spc culling for device {o.device}')
+    return _cull_candidates_cuda(blo, bhi, o, d, cs, ck_max)
 
 
 def _order_blocks(n_b, segments, ck_max, ne_cap):
@@ -331,8 +391,7 @@ def _gather_inputs(o, d, blk_ids, block_ids):
     """Culling, last stage: the active blocks' rays (origin, 1 / direction)
     and candidate cell lists, in the sorted order, as K3 reads them."""
     rays = torch.cat([o, inverse_direction(d)], dim=-1)[block_ids]
-    return (rays.contiguous(),
-            blk_ids[block_ids].to(torch.int32).contiguous())
+    return rays.contiguous(), blk_ids[block_ids]
 
 
 def _cull_blocks(blo, bhi, origin, direction, rt, cs, segments, ne_cap):

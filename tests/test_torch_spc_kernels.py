@@ -18,7 +18,7 @@ import torch
 
 from kaolin_tpu_torch.ops.spc import (generate_points, scan_octrees,
                                       unbatched_points_to_octree)
-from kaolin_tpu_torch.render.spc import _trace
+from kaolin_tpu_torch.render.spc import _trace, raster
 from kaolin_tpu_torch.render.spc.raster import build_cell_table, trace_inputs
 from kaolin_tpu_torch.utils.testing import camera_grid, punch_cell_rows
 
@@ -272,3 +272,299 @@ def test_cuda_wrapper_checks_inputs():
         _trace.trace(with_exit=True, **dict(
             args, rays=rays64, block_cells=args['block_cells'][:1],
             nb=args['nb'][:1], block_ids=args['block_ids'][:1]))
+
+
+# ---------------------------------------------------------------------------
+# The culling kernel (``spc_cull_kernel``) against its plain version
+
+def sphere_octree(level, cell_shift, device='cpu', seed=0, npts=200000):
+    """A level-``level`` octree of points on the sphere of radius 0.45:
+    (octree, point hierarchy, pyramid, exsum, cell table)."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(npts, 3))
+    u = 0.45 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    pts = torch.as_tensor(np.floor((u + 1.) / 2. * 2 ** level)).long()
+    octree = unbatched_points_to_octree(pts, level).to(device)
+    _, pyr, exsum = scan_octrees(octree, [octree.shape[0]])
+    ph = generate_points(octree, pyr, exsum)
+    table = build_cell_table(ph, pyr[0], level, cell_shift=cell_shift,
+                             cell_width=8 ** cell_shift)
+    return octree, ph, pyr[0], exsum, table
+
+
+def sphere_table(level, cell_shift, device='cpu'):
+    return sphere_octree(level, cell_shift, device)[-1]
+
+
+def cull_rays(kind, rt, n_super, seed=0):
+    """(origin, direction) float32 numpy arrays of ``n_super`` super-tiles
+    of 64 blocks of ``rt`` rays: ``'camera'`` a camera grid in compact
+    blocks; ``'axis'`` parallel rays along z, with +0 and -0 as the x and y
+    components (and some blocks with a slanted y); ``'pinhole'`` rays from
+    near the centre whose directions, in every block of two rays or more,
+    take both signs on every axis."""
+    n = n_super * 64 * rt
+    rng = np.random.default_rng(seed)
+    if kind == 'camera':
+        side = int(np.ceil(np.sqrt(n)))
+        o, d = camera_grid(side, extent=0.6)
+        perm, _ = raster.grid_order(side, side, rt)
+        return o[perm][:n], d[perm][:n]
+    i = np.arange(n)
+    if kind == 'axis':
+        o = np.stack([rng.uniform(-0.7, 0.7, n), rng.uniform(-0.7, 0.7, n),
+                      np.full(n, -2.)], -1)
+        d = np.zeros((n, 3))
+        d[:, 0] = np.where(i % 2, -0., 0.)
+        d[:, 1] = np.where((i // rt) % 3 == 0, 0.05 * (i % 2), -0.)
+        d[:, 2] = 1.
+        return o.astype(np.float32), d.astype(np.float32)
+    signs = np.array([[1, 1, 1], [-1, -1, -1], [1, -1, -1], [-1, 1, 1]])
+    o = rng.uniform(-0.05, 0.05, (n, 3))
+    d = signs[i % 4] * rng.uniform(0.1, 1., (n, 3))
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def cull_args(table, o, d, rt, device):
+    o, d = raster._pad_rays(torch.as_tensor(o, device=device),
+                            torch.as_tensor(d, device=device), rt)
+    nB = o.shape[0] // rt
+    return (table.blo, table.bhi, o.reshape(nB, rt, 3),
+            d.reshape(nB, rt, 3))
+
+
+def _meets(olo, ohi, dlo, dhi, lo, hi):
+    """``_beam_chunk_test`` for one beam and one box, in numpy float32
+    scalars, written as the slab-interval test it is."""
+    inf = np.float32(np.inf)
+    tlo, thi, feas = -inf, inf, True
+    for a in range(3):
+        r1, r2 = hi[a] - olo[a], lo[a] - ohi[a]
+        lb_a = r1 / dlo[a] if dlo[a] < 0 else np.float32(0)
+        ub_a = r1 / dlo[a] if dlo[a] > 0 else inf
+        lb_b = r2 / dhi[a] if dhi[a] > 0 else np.float32(0)
+        ub_b = r2 / dhi[a] if dhi[a] < 0 else inf
+        feas = feas and (dlo[a] != 0 or r1 >= 0) and (dhi[a] != 0 or r2 <= 0)
+        tlo, thi = max(tlo, lb_a, lb_b), min(thi, ub_a, ub_b)
+    return feas and tlo <= thi and thi > 0
+
+
+def _cull_brute_force(blo, bhi, o, d, cs, ck_max):
+    """The culling's first stage as loops over (super-tile, cell) and
+    (block, slot) in numpy float32."""
+    blo, bhi, o, d = (x.numpy() for x in (blo, bhi, o, d))
+    nB, Mc = o.shape[0], blo.shape[0] - 1
+    n_b = np.zeros(nB, np.int64)
+    blk_ids = np.full((nB, ck_max), Mc, np.int32)
+    sat = False
+    with np.errstate(over='ignore'):
+        for s in range(nB // 64):
+            so, sd = o[64 * s:64 * s + 64], d[64 * s:64 * s + 64]
+            beam = (so.min((0, 1)), so.max((0, 1)), sd.min((0, 1)),
+                    sd.max((0, 1)))
+            cells = [c for c in range(Mc) if _meets(*beam, blo[c], bhi[c])]
+            sat |= len(cells) > cs
+            slots = (cells + [Mc] * cs)[:cs]
+            for b in range(64 * s, 64 * s + 64):
+                beam = (o[b].min(0), o[b].max(0), d[b].min(0), d[b].max(0))
+                met = [c for c in slots if _meets(*beam, blo[c], bhi[c])]
+                n_b[b] = len(met)
+                blk_ids[b, :min(len(met), ck_max)] = met[:ck_max]
+                sat |= len(met) > ck_max
+    return n_b, blk_ids, sat
+
+
+def _same_cull(out, want):
+    n_b, blk_ids, sat = out
+    assert n_b.dtype == torch.int64 and blk_ids.dtype == torch.int32
+    assert sat.dtype == torch.bool and sat.shape == ()
+    assert torch.equal(n_b.cpu(), torch.as_tensor(want[0]).cpu())
+    assert torch.equal(blk_ids.cpu(), torch.as_tensor(want[1]).cpu())
+    assert bool(sat) == bool(want[2])
+
+
+@pytest.mark.parametrize('cs,ck_max,saturates', [
+    (10 ** 4, 10 ** 4, 'none'), (24, 10 ** 4, 'super-tile'),
+    (10 ** 4, 3, 'block')])
+def test_cull_plain_matches_brute_force(cs, ck_max, saturates):
+    """The plain culling against the loops, on camera blocks and on
+    pinhole blocks whose direction boxes hold 0 on every axis: every cell
+    and every padding slot (the dump row) meets those."""
+    table = sphere_table(5, 1)
+    Mc = table.blo.shape[0] - 1
+    rt = 4
+    cam = cull_rays('camera', rt, 2)
+    pin = cull_rays('pinhole', rt, 1)
+    o, d = (np.concatenate([a, b]) for a, b in zip(cam, pin))
+    args = cull_args(table, o, d, rt, 'cpu')
+    cs, ck_max = min(cs, Mc + 7), min(ck_max, Mc + 7)
+    out = raster._cull_candidates_torch(*args, cs, ck_max)
+    want = _cull_brute_force(*args, cs, ck_max)
+    _same_cull(out, want)
+    n_b, blk_ids = want[:2]
+    assert (n_b[128:] == cs).all()      # every slot, padding included
+    if saturates != 'super-tile':       # the list ends in 7 padding slots
+        assert (blk_ids[128:] == np.minimum(np.arange(ck_max), Mc)).all()
+    assert bool(want[2]) == (saturates != 'none')
+    assert 0 < n_b[:128].max() < cs
+
+
+def test_cull_cpu_takes_the_plain_path():
+    """CPU tensors run the plain version: the launch count stays, for the
+    culling alone and for a whole coherent trace."""
+    *spc, table = sphere_octree(5, 1)
+    args = cull_args(table, *cull_rays('camera', 4, 2), 4, 'cpu')
+    n0 = raster.LAUNCHES['cull']
+    _same_cull(raster._cull_candidates(*args, 32, 16),
+               raster._cull_candidates_torch(*args, 32, 16))
+    o, d = cull_rays('camera', 16, 2)
+    hits = raster.unbatched_raytrace_coherent(
+        spc[0], spc[1], spc[2], spc[3], o, d, table.level, cell_table=table)
+    assert int(hits.count.sum()) > 0
+    assert raster.LAUNCHES['cull'] == n0
+
+
+def _cull_const(name):
+    """A constant of ``csrc/spc_cull.cu`` (a sum of integers)."""
+    src = (Path(raster.__file__).parents[2] / 'csrc' / 'spc_cull.cu'
+           ).read_text()
+    expr = re.search(rf'constexpr int {name} = ([\d +]+);', src).group(1)
+    return sum(int(x) for x in expr.split('+'))
+
+
+def test_cull_wrapper_mirrors_the_kernel_shape():
+    assert _trace._MAX_RT == _cull_const('MAX_RT')
+    assert _cull_const('MAX_SMEM') == _trace._MAX_SMEM
+    assert _cull_const('LIST_BYTES') == 4 + 6 * 4   # an id, lo and hi
+
+
+@pytest.mark.parametrize('rt,nB', [(64, 64), (33, 64), (16, 65)])
+def test_cull_wrapper_refuses_a_shape_before_it_launches(rt, nB,
+                                                         monkeypatch):
+    """More rays per block than a warp has lanes, or blocks that do not
+    make whole super-tiles, raise in the wrapper: no library is loaded and
+    nothing is counted."""
+    def load():
+        raise AssertionError('the library was loaded')
+
+    monkeypatch.setattr(raster, '_ext', None)
+    monkeypatch.setattr(raster, '_bind', load)
+    table = sphere_table(4, 1)
+    o = torch.zeros((nB, rt, 3))
+    n0 = raster.LAUNCHES['cull']
+    with pytest.raises(ValueError, match='rays_per_tile'):
+        raster._cull_candidates_cuda(table.blo, table.bhi, o, o, 8, 8)
+    assert raster.LAUNCHES['cull'] == n0
+
+
+def _global_cs():
+    """The least list length that does not fit in the kernel's shared
+    memory (the source's static shared memory is under 4 KB)."""
+    return _cull_const('MAX_SMEM') // _cull_const('LIST_BYTES') + 1
+
+
+CULL_CASES = {  # name: (level, cell shift, rays, rt, super-tiles, cs, ck_max)
+    'bench': (8, 3, 'camera', 32, 4, 512, 192),
+    'rt16': (8, 3, 'camera', 16, 4, 512, 192),
+    'rt8': (8, 3, 'camera', 8, 4, 512, 128),
+    'rt1': (8, 3, 'camera', 1, 16, 512, 128),
+    'cs_is_mc': (8, 3, 'camera', 32, 4, 'Mc', 192),
+    'global_list': (8, 0, 'camera', 32, 4, 'global', 192),
+    'one_super_tile': (8, 3, 'camera', 32, 1, 512, 192),
+    'saturated': (8, 3, 'camera', 32, 4, 64, 16),
+    'signed_zeros': (8, 3, 'axis', 16, 4, 512, 192),
+    'pinhole': (7, 3, 'pinhole', 32, 2, 'Mc+40', 96),
+}
+
+
+@cuda
+@pytest.mark.parametrize('name', list(CULL_CASES))
+def test_cuda_cull_matches_plain(name):
+    """``spc_cull_kernel`` against the plain version on the card: n_b,
+    blk_ids and sat equal, the same on every run, one launch a call."""
+    level, shift, rays, rt, n_super, cs, ck_max = CULL_CASES[name]
+    table = sphere_table(level, shift, 'cuda')
+    Mc = table.blo.shape[0] - 1
+    cs = {'Mc': Mc, 'Mc+40': Mc + 40, 'global': _global_cs()}.get(cs, cs)
+    args = cull_args(table, *cull_rays(rays, rt, n_super), rt, 'cuda')
+    assert args[2].shape[0] == 64 * n_super
+    n0 = raster.LAUNCHES['cull']
+    out = raster._cull_candidates(*args, cs, ck_max)
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES['cull'] == n0 + 1
+    _same_cull(out, raster._cull_candidates_torch(*args, cs, ck_max))
+    _same_cull(raster._cull_candidates(*args, cs, ck_max), out)
+    n_b = out[0].cpu()
+    assert int(n_b.max()) > 0 and Mc % _cull_const('THREADS') != 0
+    if name == 'global_list':            # the list in device memory
+        assert Mc > cs > 8000
+    if name == 'saturated':              # both caps cut
+        assert bool(out[2]) and int(n_b.max()) > ck_max
+        assert int(n_b.max()) <= cs
+    if name == 'signed_zeros':
+        d = args[3]
+        assert bool((d[..., :2] == 0).all(-1).any())
+        assert bool(torch.signbit(d[..., 0]).any())
+        assert bool((~torch.signbit(d[..., 0])).any())
+    if name == 'pinhole':                # every slot meets, the dump row too
+        assert bool((n_b == cs).all()) and bool(out[2])
+        row = torch.minimum(torch.arange(ck_max), torch.tensor(Mc))
+        assert bool((out[1].cpu() == row).all())
+
+
+@cuda
+def test_cuda_cull_saturates_the_super_tile_alone():
+    """A super-tile with more than cs candidates flags sat where no block
+    has more than ck_max."""
+    table = sphere_table(8, 3, 'cuda')
+    args = cull_args(table, *cull_rays('camera', 32, 4), 32, 'cuda')
+    out = raster._cull_candidates(*args, 16, 10 ** 4)
+    _same_cull(out, raster._cull_candidates_torch(*args, 16, 10 ** 4))
+    assert bool(out[2]) and int(out[0].max()) <= 16
+
+
+@cuda
+def test_cuda_cull_launches_once_a_frame(monkeypatch):
+    """One coherent trace on the card launches the culling kernel once and
+    K3 once; its hits equal those of the same trace with the plain culling
+    on the card."""
+    octree, ph, pyr, exsum, table = sphere_octree(8, 3, 'cuda')
+    o, d = (torch.as_tensor(x, device='cuda')
+            for x in camera_grid(256, extent=0.6))
+
+    def frame():
+        return raster.unbatched_raytrace_coherent(
+            octree, ph, pyr, exsum, o, d, table.level, rays_per_tile=16,
+            engine='mosaic', cell_table=table, grid_shape=(256, 256))
+    n0, k0 = raster.LAUNCHES['cull'], _trace.LAUNCHES['trace']
+    hits = frame()
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES['cull'] == n0 + 1
+    assert _trace.LAUNCHES['trace'] == k0 + 1
+    assert int(hits.count.sum()) > 0 and not bool(hits.saturated)
+    monkeypatch.setattr(raster, '_cull_candidates_cuda',
+                        raster._cull_candidates_torch)
+    _assert_same(tuple(hits), tuple(frame()))
+    assert raster.LAUNCHES['cull'] == n0 + 1
+
+
+@cuda
+def test_cuda_cull_refuses_before_it_launches():
+    table = sphere_table(6, 2, 'cuda')
+    n0 = raster.LAUNCHES['cull']
+    o = torch.zeros((64, 64, 3), device='cuda')
+    with pytest.raises(ValueError, match='rays_per_tile'):
+        raster._cull_candidates(table.blo, table.bhi, o, o, 64, 64)
+    o = torch.zeros((96, 16, 3), device='cuda')
+    with pytest.raises(ValueError, match='super-tiles'):
+        raster._cull_candidates(table.blo, table.bhi, o, o, 64, 64)
+    o = torch.zeros((64, 16, 3), device='cuda')
+    with pytest.raises(ValueError, match='o: expected'):
+        raster._cull_candidates(table.blo, table.bhi, o.double(), o, 64, 64)
+    with pytest.raises(ValueError, match='bhi: expected'):
+        raster._cull_candidates(table.blo, table.bhi.cpu(), o, o, 64, 64)
+    with pytest.raises(ValueError, match='d: expected'):
+        raster._cull_candidates(table.blo, table.bhi, o,
+                                o.transpose(0, 1).contiguous().transpose(
+                                    0, 1), 64, 64)
+    assert raster.LAUNCHES['cull'] == n0
