@@ -1321,9 +1321,9 @@ def check_trace_kernel(spc):
     err = _max_t_err(out_k, out_p)
     tests = kbisect.trace_work(args, out_k[3], False)[2]
     print(f'K3 spc_trace_kernel vs plain on the sphere scene: '
-          f'{nb.shape[0]} active blocks of {args["num_blocks"]}, candidate '
-          f'cells per block max {int(nb.max())}, mean '
-          f'{nb.float().mean().item():.2f}; '
+          f'{int((nb > 0).sum())} active blocks ({nb.shape[0]} traced) of '
+          f'{args["num_blocks"]}, candidate cells per active block max '
+          f'{int(nb.max())}, mean {nb[nb > 0].float().mean().item():.2f}; '
           f'{rt * args["cell_rows"].shape[2] * int(nb.sum())} (ray, slot) '
           f'pairs, {tests} of them (ray, voxel) slab tests; hits per ray '
           f'max {int(cnt.max())}, mean '
@@ -1407,10 +1407,11 @@ def check_dense(dev):
     sat_256 = unbatched_raytrace_coherent(octree, ph, pyramids[0], exsum, o,
                                           d, L, knum=256, **trace)
     print(f'K3 vs plain, dense level-{L} octree ({ph.shape[0]} points): '
-          f'{args["nb"].shape[0]} active blocks, candidate cells per block '
-          f'max {int(args["nb"].max())}; hits per ray max {int(cnt.max())}, '
-          f'{int((cnt > 64).sum())} rays > 64, {int((cnt > kbuf).sum())} '
-          f'> kbuf {kbuf}; equal (bitwise) with pidx offset 0 and '
+          f'{int((args["nb"] > 0).sum())} active blocks, candidate cells '
+          f'per block max {int(args["nb"].max())}; hits per ray max '
+          f'{int(cnt.max())}, {int((cnt > 64).sum())} rays > 64, '
+          f'{int((cnt > kbuf).sum())} > kbuf {kbuf}; equal (bitwise) with '
+          f'pidx offset 0 and '
           f'{table.offset}, with and without exit depths; '
           f'saturated at knum {DENSE["knum"]}: {bool(sat_k.saturated)}, '
           f'at knum 256: {bool(sat_256.saturated)}')
@@ -2317,12 +2318,14 @@ def path_a(fv, dev, card):
     same = _same_outputs(out_k, out_p)
     err = _max_t_err(out_k, out_p)
     main = hits.count[perm]
-    print(f'K3 vs plain on path A\'s pinhole rays: {args["nb"].shape[0]} '
-          f'active blocks of {args["num_blocks"]}, candidate cells per block '
-          f'max {int(args["nb"].max())}, mean '
-          f'{args["nb"].float().mean().item():.2f}; count, pidx, t_near and '
-          f't_far (bitwise) equal: {same}; max|dt| {err:.3e}; counts as on '
-          f'the main path: {torch.equal(out_k[3].reshape(-1)[:N], main)}; '
+    active = args['nb'][args['nb'] > 0]
+    print(f'K3 vs plain on path A\'s pinhole rays: {active.shape[0]} '
+          f'active blocks ({args["nb"].shape[0]} traced) of '
+          f'{args["num_blocks"]}, candidate cells per active block max '
+          f'{int(active.max())}, mean {active.float().mean().item():.2f}; '
+          f'count, pidx, t_near and t_far (bitwise) equal: {same}; max|dt| '
+          f'{err:.3e}; counts as on the main path: '
+          f'{torch.equal(out_k[3].reshape(-1)[:N], main)}; '
           f'culling saturated {bool(sat)}')
     sup = super_tile_candidates(scene['table'], o[perm], d[perm],
                                 TRACE['rays_per_tile'])

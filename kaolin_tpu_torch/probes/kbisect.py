@@ -211,7 +211,8 @@ def run(device='cuda', spc_args=None, scenes=None):
         raise RuntimeError('trace stage 6 differs from K3 at the SPC cell')
     nbytes, flops, tests = trace_work(spc_args, k3[3], we)
     res['spc'] = _summary(k3, spc_args['kbuf'])
-    res['spc'].update(active_blocks=int(spc_args['nb'].shape[0]),
+    res['spc'].update(active_blocks=int((spc_args['nb'] > 0).sum()),
+                      traced_blocks=int(spc_args['nb'].shape[0]),
                       slab_tests=tests)
     if not cuda:
         return res

@@ -8,7 +8,8 @@ trivial Pallas kernel (``dummy_kernel``, P2).  Here:
 * S1 = :func:`~kaolin_tpu_torch.render.spc.raster._cull_candidates` (beam
   boxes, super-tile x cell and block x candidate tests, first-k packs);
 * S1b = S1 + :func:`~kaolin_tpu_torch.render.spc.raster._order_blocks`
-  (non-empty blocks, stable sort by candidate count, segment caps);
+  (a stable sort of every block by candidate count, the non-empty first,
+  cut to the fixed ``max_active_blocks``; segment caps);
 * S2 = S1b + :func:`~kaolin_tpu_torch.render.spc.raster._gather_inputs`
   (K3's rays and candidate lists): the whole culling;
 * S3 = ``unbatched_raytrace_coherent`` with the prebuilt cell table;
@@ -216,7 +217,8 @@ def run(device='cuda', cell=None, offset_after=True):
                                       tuple(trace_offset_after(cell))):
         raise RuntimeError('the trace with the offset written by K3 differs '
                            'from the trace with the offset pass after it')
-    res['counts'] = dict(active_blocks=int(block_ids.shape[0]),
+    res['counts'] = dict(active_blocks=int((nb > 0).sum()),
+                         traced_blocks=int(block_ids.shape[0]),
                          blocks=st['nB'], candidate_cells=int(nb.sum()),
                          hits=int(hits.count.sum()),
                          saturated=bool(hits.saturated))

@@ -65,27 +65,34 @@ def _outputs(num_blocks, rt, kbuf, device):
 
 
 def _trace_torch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-                 with_exit, num_blocks, pidx_offset=0):
+                 with_exit, num_blocks, pidx_offset=0, out=None):
     """Plain PyTorch version of K3 (same arguments as :func:`trace`)."""
     return _trace_staged_torch(6, rays, cell_rows, block_cells, nb,
                                block_ids, kbuf, half, with_exit, num_blocks,
-                               pidx_offset)
+                               pidx_offset, out)
 
 
 def _trace_staged_torch(stage, rays, cell_rows, block_cells, nb, block_ids,
-                        kbuf, half, with_exit, num_blocks, pidx_offset=0):
+                        kbuf, half, with_exit, num_blocks, pidx_offset=0,
+                        out=None):
     """Plain PyTorch version of :func:`trace_staged` (stage 6 is K3's).
 
     Dense over (ray, candidate voxel) pairs, in chunks of active blocks of
     at most ``_PLAIN_BLOCK`` pairs; each chunk is padded to its widest
-    block's candidate count.
+    block's candidate count.  The blocks with nb = 0 at the end of the list
+    are skipped: their rows keep the defaults.
     """
-    nA, rt = rays.shape[:2]
+    rt = rays.shape[1]
     cw = cell_rows.shape[2]
     side = 2. * half
     device = rays.device
-    tn_out, tf_out, pi_out, cnt_out = _outputs(num_blocks, rt, kbuf, device)
+    if out is None:
+        out = _outputs(num_blocks, rt, kbuf, device)
+    tn_out, tf_out, pi_out, cnt_out = out
     nb_host = nb.tolist()
+    nA = len(nb_host)
+    while nA and not nb_host[nA - 1]:
+        nA -= 1
     a0 = 0
     while a0 < nA:
         a1, C = a0, 1
@@ -223,16 +230,17 @@ def _refused(rays, cell_rows, block_cells, nb, block_ids, kbuf, out):
 
 def _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
                 with_exit, num_blocks, pidx_offset=0, stage=6,
-                counter='trace'):
-    """Allocate the outputs and launch K3 (or its cut at ``stage``); same
-    contract as the plain version."""
-    out = _outputs(num_blocks, rays.shape[1], kbuf, rays.device)
+                counter='trace', out=None):
+    """Launch K3 (or its cut at ``stage``) into ``out``, allocated here
+    where it is None; same contract as the plain version."""
+    if out is None:
+        out = _outputs(num_blocks, rays.shape[1], kbuf, rays.device)
     return _launch(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
                    with_exit, out, stage, counter, pidx_offset)
 
 
 def trace(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
-          with_exit, num_blocks, pidx_offset=0):
+          with_exit, num_blocks, pidx_offset=0, out=None):
     """K3: trace the active blocks' rays against their candidate cells.
 
     Args:
@@ -248,6 +256,10 @@ def trace(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
         num_blocks: number of output rows nB.
         pidx_offset: added to the leaf index of every kept hit (the leaf
             level's offset in the point hierarchy gives global indices).
+        out: the outputs, as :func:`_outputs` makes them (the defaults in
+            place), to write into and return; default: allocated here.
+            Made ahead, their fills can run on the card while the host
+            prepares the other arguments.
 
     Returns:
         (t_near (nB, rt, kbuf) f32, t_far (nB, rt, kbuf) f32, pidx (nB, rt,
@@ -256,11 +268,12 @@ def trace(rays, cell_rows, block_cells, nb, block_ids, kbuf, half,
     """
     if rays.device.type == 'cpu':
         return _trace_torch(rays, cell_rows, block_cells, nb, block_ids,
-                            kbuf, half, with_exit, num_blocks, pidx_offset)
+                            kbuf, half, with_exit, num_blocks, pidx_offset,
+                            out)
     if rays.device.type != 'cuda':
         raise ValueError(f'no spc trace for device {rays.device}')
     return _trace_cuda(rays, cell_rows, block_cells, nb, block_ids, kbuf,
-                       half, with_exit, num_blocks, pidx_offset)
+                       half, with_exit, num_blocks, pidx_offset, out=out)
 
 
 def trace_staged(stage, rays, cell_rows, block_cells, nb, block_ids, kbuf,

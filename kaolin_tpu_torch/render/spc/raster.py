@@ -14,14 +14,15 @@ Two engines, with the JAX package's names:
   level-(L - cell_shift) ancestor cells (:func:`build_cell_table`).
   Super-tiles cull all cells, blocks refine their super-tile's list
   (:func:`_cull_candidates`), the non-empty blocks are sorted by candidate
-  count, and kernel K3 (:mod:`._trace`) traces them in one launch, writing
-  each block's rows straight to its place.  On CUDA tensors the culling's
-  first stage is one launch of ``spc_cull_kernel`` (``csrc/spc_cull.cu``,
-  counted in ``LAUNCHES['cull']``) and K3 the CUDA kernel; on CPU tensors
-  each is its plain PyTorch version.  The segment caps of the JAX engine
-  are kept for what they mean (a block's candidate cells are cut to its
-  segment's cap, and the cut flags saturation); the TPU's per-segment
-  launches, cell-row pre-gather and scatter-back are not needed.
+  count into a list of fixed length, and kernel K3 (:mod:`._trace`) traces
+  them in one launch, writing each block's rows straight to its place.  On
+  CUDA tensors the culling's first stage is one launch of
+  ``spc_cull_kernel`` (``csrc/spc_cull.cu``, counted in
+  ``LAUNCHES['cull']``) and K3 the CUDA kernel; on CPU tensors each is its
+  plain PyTorch version.  The segment caps of the JAX engine are kept for
+  what they mean (a block's candidate cells are cut to its segment's cap,
+  and the cut flags saturation); the TPU's per-segment launches, cell-row
+  pre-gather and scatter-back are not needed.
 * ``'xla'``: voxels binned by morton chunks of 64, traced in plain PyTorch
   (the JAX package's pure-XLA engine).  It runs only when asked for.
 
@@ -362,29 +363,32 @@ def _cull_candidates(blo, bhi, o, d, cs, ck_max):
 
 
 def _order_blocks(n_b, segments, ck_max, ne_cap):
-    """Culling, second stage: the non-empty blocks (first ``ne_cap``),
-    sorted by candidate count, descending and stable; position p in that
-    order gets the cell cap of the segment that holds p.
+    """Culling, second stage: the non-empty blocks (first ``ne_cap`` by
+    id), sorted by candidate count, descending and stable, then empty
+    blocks (by id) up to ``ne_cap``; position p in that order gets the
+    cell cap of the segment that holds p.
 
-    Returns (block_ids (nA,) int64, nb (nA,) int32 cells to read,
-    saturated () bool tensor).
+    Every shape is fixed by ``ne_cap`` (the JAX package's compaction), so
+    nothing waits for the card: the kept blocks' count in place, 0 for the
+    rest, sorted over all nB blocks.  ``segments`` ends in an open cap.
+
+    Returns (block_ids (ne_cap,) int64, nb (ne_cap,) int32 cells to read,
+    0 past the non-empty blocks, saturated () bool tensor).
     """
-    ne_ids = torch.nonzero(n_b > 0).squeeze(1)
-    sat = ne_ids.shape[0] > ne_cap
-    ne_ids = ne_ids[:ne_cap]
-    nA = ne_ids.shape[0]
-    n_ne = n_b[ne_ids]
-    order_l = torch.argsort(-n_ne, stable=True)
-    block_ids = ne_ids[order_l]
-    n_sorted = n_ne[order_l]
-    seg_cap = torch.empty_like(n_sorted)
+    ne = n_b > 0
+    kept = ne & (torch.cumsum(ne, 0) <= ne_cap)
+    n_sorted, block_ids = torch.sort(torch.where(kept, n_b, 0),
+                                     descending=True, stable=True)
+    n_sorted, block_ids = n_sorted[:ne_cap], block_ids[:ne_cap]
+    ckb = torch.empty_like(n_sorted)    # the cap of each position's segment
     start = 0
-    for cap, ckb in segments:
-        stop = min(start + cap, nA) if cap else nA
-        seg_cap[start:stop] = min(ckb, ck_max)
-        sat = sat | (n_sorted[start:stop] > ckb).any()
+    for cap, c in segments:
+        stop = min(start + cap, ne_cap) if cap else ne_cap
+        ckb[start:stop] = c
         start = stop
-    return block_ids, torch.minimum(n_sorted, seg_cap).to(torch.int32), sat
+    sat = (ne.sum() > ne_cap) | (n_sorted > ckb).any()
+    nb = torch.minimum(n_sorted, ckb.clamp(max=ck_max)).to(torch.int32)
+    return block_ids, nb, sat
 
 
 def _gather_inputs(o, d, blk_ids, block_ids):
@@ -402,13 +406,15 @@ def _cull_blocks(blo, bhi, origin, direction, rt, cs, segments, ne_cap):
     ``cs`` candidate cells, blocks refine that list (first ``segments[0][1]``
     kept); the non-empty blocks (first ``ne_cap``) are sorted by candidate
     count, descending and stable, and position p in that order gets the
-    cell cap of the segment that holds p.  Three stages:
-    :func:`_cull_candidates`, :func:`_order_blocks`, :func:`_gather_inputs`,
-    each in its span (``spc.cull``, ``spc.order``, ``spc.gather``).
+    cell cap of the segment that holds p; empty blocks fill the list to
+    ``ne_cap`` with nb = 0.  Three stages: :func:`_cull_candidates`,
+    :func:`_order_blocks`, :func:`_gather_inputs`, each in its span
+    (``spc.cull``, ``spc.order``, ``spc.gather``), none of which waits for
+    the card.
 
-    Returns (rays (nA, rt, 6) f32 [origin, 1 / direction], block_cells
-    (nA, ckmax) int32, nb (nA,) int32, block_ids (nA,) int64, saturated
-    () bool tensor, nB).
+    Returns (rays (ne_cap, rt, 6) f32 [origin, 1 / direction], block_cells
+    (ne_cap, ckmax) int32, nb (ne_cap,) int32, block_ids (ne_cap,) int64,
+    saturated () bool tensor, nB).
     """
     nB = origin.shape[0] // rt
     o = origin.to(torch.float32).reshape(nB, rt, 3)
@@ -442,7 +448,6 @@ def _cull_settings(cell_table, num_blocks, knum=64, segments=None,
     blocks)."""
     Mc = cell_table.rows.shape[0] - 1
     cw = cell_table.rows.shape[2]
-    kbuf = max(64, 1 << int(np.ceil(np.log2(max(2, knum)))))
     if segments is None:
         segments = ((1024, 128), (3072, 32), (8192, 8), (None, 4))
     segs = [(cap, min(int(ckb), Mc)) for cap, ckb in segments]
@@ -451,7 +456,13 @@ def _cull_settings(cell_table, num_blocks, knum=64, segments=None,
     cs = min(Mc, max(segs[0][1], int(max_super_voxels or 98304) // cw))
     if max_active_blocks is None:
         max_active_blocks = max(1024, num_blocks // 2)
-    return kbuf, segs, cs, min(num_blocks, int(max_active_blocks))
+    return _kbuf(knum), segs, cs, min(num_blocks, int(max_active_blocks))
+
+
+def _kbuf(knum):
+    """K3's k-buffer width for ``knum`` hits a ray: a power of two, at
+    least 64."""
+    return max(64, 1 << int(np.ceil(np.log2(max(2, knum)))))
 
 
 def trace_inputs(cell_table, origin, direction, rays_per_tile=16, knum=64,
@@ -460,7 +471,10 @@ def trace_inputs(cell_table, origin, direction, rays_per_tile=16, knum=64,
     """The ``'mosaic'`` engine's culling: K3's arguments for a ray set, as a
     dict of the keyword arguments of :func:`._trace.trace` but
     ``with_exit``, and the culling's saturation flag.  Arguments as in
-    :func:`unbatched_raytrace_coherent`."""
+    :func:`unbatched_raytrace_coherent`.  ``block_ids`` and ``nb`` (and
+    ``rays``, ``block_cells``) hold ``min(max_active_blocks, blocks)``
+    entries: the non-empty blocks first, then empty ones with nb = 0;
+    count the non-empty blocks as ``(nb > 0).sum()``."""
     rt = int(rays_per_tile)
     origin, direction = _pad_rays(origin, direction, rt)
     kbuf, segs, cs, ne_cap = _cull_settings(
@@ -480,15 +494,23 @@ def _trace_cells(cell_table, origin, direction, rays_per_tile, knum,
     """The ``'mosaic'`` engine on rays in block order: the culling, K3 and
     the cut to the rays given and to ``knum`` entries.  Arguments as in
     :func:`unbatched_raytrace_coherent`; ``pidx_offset`` as in
-    :func:`._trace.trace`.  Returns (t_near, t_far, pidx (N, knum), count
-    (N,), saturated)."""
+    :func:`._trace.trace`.  The k-buffer is allocated and filled before the
+    culling is enqueued (both in span ``spc.trace``), and nothing waits for
+    the card.  Returns (t_near, t_far, pidx (N, knum), count (N,),
+    saturated)."""
     N = origin.shape[0]
-    args, sat = trace_inputs(cell_table, origin, direction, rays_per_tile,
-                             knum, segments, max_super_voxels,
-                             max_active_blocks)
+    rt = int(rays_per_tile)
+    # the k-buffer first: its fills, the frame's largest work, start on the
+    # card while the host enqueues the culling
+    with span('spc.trace', origin.device):
+        out = _trace._outputs((N + (-N) % (64 * rt)) // rt, rt, _kbuf(knum),
+                              origin.device)
+    args, sat = trace_inputs(cell_table, origin, direction, rt, knum,
+                             segments, max_super_voxels, max_active_blocks)
     with span('spc.trace', origin.device):
         tns, tfs, pis, cnt = _trace.trace(with_exit=bool(with_exit),
-                                          pidx_offset=pidx_offset, **args)
+                                          pidx_offset=pidx_offset, out=out,
+                                          **args)
     tns, tfs, pis = (x.reshape(-1, args['kbuf'])[:N, :knum]
                      for x in (tns, tfs, pis))
     cnt = cnt.reshape(-1)[:N]
@@ -557,7 +579,10 @@ def unbatched_raytrace_coherent(octree, point_hierarchy, pyramid, exsum,
             them in order (the last cap may be None = the rest).  Default
             ``((1024, 128), (3072, 32), (8192, 8), (None, 4))``.
         max_active_blocks: ``'mosaic'``: most non-empty blocks traced
-            (default: half the blocks, at least 1024).
+            (default: half the blocks, at least 1024).  K3 always runs
+            this many blocks (at most all of them): those past the
+            non-empty ones read no cell, and the frame has a fixed shape
+            that the host enqueues without waiting for the card.
         with_exit: also return exit depths (else ``t_far`` is all inf).
         device: where to trace (default: the device of the tensor inputs,
             the card for numpy ones).

@@ -201,8 +201,9 @@ def test_spc_frame_spans():
     frame = _spc()
     _, spans = _cpu_profile(frame)
     names = [s[0] for s in spans]
-    assert names == ['spc.frame', 'spc.cull', 'spc.order', 'spc.gather',
-                     'spc.trace']
+    # the k-buffer's fills first, then the culling, then K3
+    assert names == ['spc.frame', 'spc.trace', 'spc.cull', 'spc.order',
+                     'spc.gather', 'spc.trace']
     for s in spans[1:]:
         assert _inside(s, spans[0])
 
@@ -310,11 +311,14 @@ def test_cuda_spc_marks_follow_their_host_spans(tmp_path):
     for kind, slug, ts in _marks(events):
         if kind == 'begin':
             begins.setdefault(slug, []).append(ts)
-    assert set(host) == {'spc_frame', 'spc_cull', 'spc_order',
-                         'spc_gather', 'spc_trace'}
-    assert all(len(v) == 3 for v in host.values())
+    # spans a frame: spc.trace twice, around the k-buffer's fills and K3
+    per_frame = dict(spc_frame=1, spc_cull=1, spc_order=1, spc_gather=1,
+                     spc_trace=2)
+    assert set(host) == set(per_frame)
     for slug, opened in host.items():
-        starts = begins[slug][-2:]
-        assert len(starts) == 2
-        for mark_ts, host_ts in zip(starts, sorted(opened)[1:]):
+        n = per_frame[slug]
+        assert len(opened) == 3 * n
+        starts = begins[slug][-2 * n:]
+        assert len(starts) == 2 * n
+        for mark_ts, host_ts in zip(starts, sorted(opened)[n:]):
             assert mark_ts >= host_ts

@@ -132,6 +132,7 @@ def test_plain_version_matches_brute_force(with_exit):
     t_near; blocks with no candidate cells and inactive blocks keep the
     defaults."""
     args = scene(5, 60000, 5, 'diagonal', 16, 64, zero_nb=True)
+    assert bool((args['nb'][32:] == 0).all())   # the empty blocks' tail
     n0 = _trace.LAUNCHES['trace']
     out = _trace.trace(with_exit=with_exit, **args)
     assert _trace.LAUNCHES['trace'] == n0          # CPU: the plain version
@@ -143,6 +144,7 @@ def test_plain_version_matches_brute_force(with_exit):
     inactive = torch.ones(args['num_blocks'], dtype=torch.bool)
     inactive[args['block_ids']] = False
     assert bool((out[2][inactive] == -1).all())
+    assert bool((out[2][empty] == -1).all())
 
 
 @pytest.mark.parametrize('with_exit', [True, False])
@@ -213,6 +215,22 @@ def test_wrapper_refuses_a_shape_before_it_launches(rt, kbuf):
     with pytest.raises(ValueError, match='rays_per_tile'):
         _trace._launch(with_exit=True, out=out, **args)
 
+
+@pytest.mark.parametrize('with_exit', [True, False])
+def test_trace_into_given_outputs(with_exit):
+    """``out``: K3 writes into the outputs it is given, as ``_outputs``
+    makes them, and returns them; the result equals the allocating call's
+    bit for bit.  The list ends in blocks with nb = 0, which the plain
+    version skips."""
+    args = scene(*CASES[4], zero_nb=True)
+    assert bool((args['nb'][32:] == 0).all())
+    want = _trace.trace(with_exit=with_exit, pidx_offset=OFFSET, **args)
+    out = _trace._outputs(args['num_blocks'], args['rays'].shape[1],
+                          args['kbuf'], 'cpu')
+    got = _trace.trace(with_exit=with_exit, pidx_offset=OFFSET, out=out,
+                       **args)
+    assert all(g is o for g, o in zip(got, out))
+    _assert_same(got, want)
 
 @cuda
 @pytest.mark.parametrize('case', CASES)
@@ -424,6 +442,88 @@ def test_cull_cpu_takes_the_plain_path():
     assert raster.LAUNCHES['cull'] == n0
 
 
+def _order_blocks_nonzero(n_b, segments, ck_max, ne_cap):
+    """The block order with ``nonzero``: a list of the non-empty blocks
+    alone, (nA,) long, whose length the host reads from the card.  The
+    same order, caps and flag as :func:`raster._order_blocks` over its
+    first nA entries."""
+    ne_ids = torch.nonzero(n_b > 0).squeeze(1)
+    sat = ne_ids.shape[0] > ne_cap
+    ne_ids = ne_ids[:ne_cap]
+    nA = ne_ids.shape[0]
+    n_ne = n_b[ne_ids]
+    order = torch.argsort(-n_ne, stable=True)
+    block_ids, n_sorted = ne_ids[order], n_ne[order]
+    seg_cap = torch.empty_like(n_sorted)
+    start = 0
+    for cap, ckb in segments:
+        stop = min(start + cap, nA) if cap else nA
+        seg_cap[start:stop] = min(ckb, ck_max)
+        sat = sat | bool((n_sorted[start:stop] > ckb).any())
+        start = stop
+    return block_ids, torch.minimum(n_sorted, seg_cap).to(torch.int32), sat
+
+
+ORDER_SEGMENTS = [(16, 12), (32, 6), (None, 3)]
+
+
+def _order_counts(case):
+    """Candidate counts of 256 blocks for a case of
+    :func:`test_order_blocks_matches_the_nonzero_order`, and its
+    ``ne_cap``: 16 blocks of 7-12 candidates, 32 of 4-6, 60 of 1-3 and the
+    rest empty, in a seeded order, so that each segment takes its group
+    and no cap cuts; a case changes that."""
+    rng = np.random.default_rng(7)
+    n = np.concatenate([rng.integers(7, 13, 16), rng.integers(4, 7, 32),
+                        rng.integers(1, 4, 60), np.zeros(148, np.int64)])
+    ne_cap = 200
+    if case == 'ties':                  # few distinct counts, many ties
+        n = np.concatenate([np.full(16, 9), np.full(32, 5), np.full(60, 2),
+                            np.zeros(148, np.int64)])
+    elif case == 'over_ne_cap':         # 60 of 108 non-empty blocks kept
+        n = np.where(n > 0, np.minimum(n, 3), 0)
+        ne_cap = 60
+    elif case == 'all_empty':
+        n = np.zeros(256, np.int64)
+    elif case.startswith('cut'):        # one more block over segment k's cap
+        k = int(case[-1])
+        n[-1] = ORDER_SEGMENTS[k][1] + 1
+    n = rng.permutation(n)
+    return torch.as_tensor(n, dtype=torch.int64), ne_cap
+
+
+@pytest.mark.parametrize('case', ['unsaturated', 'ties', 'over_ne_cap',
+                                  'all_empty', 'cut0', 'cut1', 'cut2'])
+def test_order_blocks_matches_the_nonzero_order(case):
+    """The block order in a list of ``ne_cap`` entries against the list of
+    the non-empty blocks alone (``nonzero``): the first nA block ids and
+    cell counts equal, nb 0 after them, every block at most once, and the
+    same saturation flag (ne_cap cut, or a segment's cap)."""
+    n_b, ne_cap = _order_counts(case)
+    ck_max = ORDER_SEGMENTS[0][1]
+    block_ids, nb, sat = raster._order_blocks(n_b, ORDER_SEGMENTS, ck_max,
+                                              ne_cap)
+    want_ids, want_nb, want_sat = _order_blocks_nonzero(
+        n_b, ORDER_SEGMENTS, ck_max, ne_cap)
+    nA = want_ids.shape[0]
+    assert block_ids.dtype == torch.int64 and nb.dtype == torch.int32
+    assert sat.dtype == torch.bool and sat.shape == ()
+    assert block_ids.shape == nb.shape == (ne_cap,)
+    assert torch.equal(block_ids[:nA], want_ids)
+    assert torch.equal(nb[:nA], want_nb)
+    assert bool((nb[nA:] == 0).all())
+    assert torch.unique(block_ids).shape[0] == ne_cap
+    assert bool(sat) == want_sat
+    assert want_sat == (case == 'over_ne_cap' or case.startswith('cut'))
+    assert nA == min(ne_cap, int((n_b > 0).sum()))
+    if case == 'ties':                  # within a count, by block id
+        for c in (9, 5, 2):
+            ids = block_ids[:nA][n_b[block_ids[:nA]] == c]
+            assert torch.equal(ids, torch.sort(ids).values)
+    if case == 'all_empty':
+        assert nA == 0 and torch.equal(block_ids, torch.arange(ne_cap))
+
+
 def _cull_const(name):
     """A constant of ``csrc/spc_cull.cu`` (a sum of integers)."""
     src = (Path(raster.__file__).parents[2] / 'csrc' / 'spc_cull.cu'
@@ -546,6 +646,40 @@ def test_cuda_cull_launches_once_a_frame(monkeypatch):
                         raster._cull_candidates_torch)
     _assert_same(tuple(hits), tuple(frame()))
     assert raster.LAUNCHES['cull'] == n0 + 1
+
+
+@cuda
+def test_cuda_frame_waits_for_nothing():
+    """A frame with a prebuilt cell table and a host pyramid enqueues
+    without one host wait (``set_sync_debug_mode('error')`` raises at the
+    first), launches the culling kernel once and K3 once, and its hits
+    equal those of the plain version on the CPU bit for bit."""
+    o, d = camera_grid(256, extent=0.6)
+    perm, _ = raster.grid_order(256, 256, 16)
+    o, d = torch.as_tensor(o[perm]), torch.as_tensor(d[perm])
+
+    def frame(device):
+        octree, ph, pyr, exsum, table = sphere_octree(8, 3, device)
+        assert pyr.device.type == 'cpu'
+        o_d, d_d = o.to(device), d.to(device)
+        return lambda: raster.unbatched_raytrace_coherent(
+            octree, ph, pyr, exsum, o_d, d_d, table.level, rays_per_tile=16,
+            engine='mosaic', cell_table=table)
+    on_card = frame('cuda')
+    on_card()                           # loads the modules
+    torch.cuda.synchronize()
+    n0, k0 = raster.LAUNCHES['cull'], _trace.LAUNCHES['trace']
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        hits = on_card()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES['cull'] == n0 + 1
+    assert _trace.LAUNCHES['trace'] == k0 + 1
+    want = frame('cpu')()
+    assert int(want.count.sum()) > 0 and not bool(want.saturated)
+    _assert_same(tuple(hits), tuple(want))
 
 
 @cuda
