@@ -87,7 +87,9 @@ its kernels' launch counts set to 0 just before and read just after:
     bound; the trace of the SPC cell by stage (culling candidates, block
     order, gathers, the whole trace, K3, output fills, the trace with the
     offset pass after K3);
-13. P3, ``probes.kbisect``: K3 cut at stages 1-6 against the plain version
+13. P3, ``probes.kbisect``: K3 cut at stages 1-6 (K3's template
+    ``csrc/spc_trace.cuh`` instantiated in the probes' module, whose
+    ``spc_trace`` library holds stage 6 only) against the plain version
     on the script's inputs, on a scene with rays past kbuf, and on phase
     8's dense level-6 octree; at the SPC cell every stage against plain
     and stage 6 equal to K3 bit for bit; each stage's time and its delta.
@@ -1598,20 +1600,14 @@ def _probe_path(run, *args, **kwargs):
     set to 0 just before; returns (its result, the counts just after)."""
     for k in PK.LAUNCHES:
         PK.LAUNCHES[k] = 0
-    for st in _trace.STAGES:
-        _trace.LAUNCHES[f'stage{st}'] = 0
     torch.cuda.synchronize()
     res = run(*args, **kwargs)
     torch.cuda.synchronize()
-    counts = dict(PK.LAUNCHES)
-    counts.update({f'stage{st}': _trace.LAUNCHES[f'stage{st}']
-                   for st in _trace.STAGES})
-    return res, counts
+    return res, dict(PK.LAUNCHES)
 
 
 def _probe_counts():
-    return sum(PK.LAUNCHES.values()) + sum(
-        _trace.LAUNCHES[f'stage{st}'] for st in _trace.STAGES)
+    return sum(PK.LAUNCHES.values())
 
 
 def _p1_line(t):
@@ -1746,7 +1742,7 @@ def probe_p3(args, dense_args, card):
     _check(res['scenes']['hits']['rays_over_kbuf'] > 0
            and res['scenes']['dense level-6']['rays_over_64'] > 0,
            'P3 scenes with counts past 64 and past kbuf')
-    _check(all(counts[f'stage{st}'] >= 1 for st in _trace.STAGES),
+    _check(all(counts[f'stage{st}'] >= 1 for st in PK.STAGES),
            'every P3 stage launched on its path')
     return res, counts
 
@@ -4533,7 +4529,7 @@ def main():
           'nccl, config #5\'s width, world size 2 on gloo)')
 
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
-    trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cu'
+    trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cuh'
     kernels = [
         dict(name='fused_forward_kernel', route='cuda', source=src,
              replaces='kaolin_tpu/render/mesh/_fused.py:232',

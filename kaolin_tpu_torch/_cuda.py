@@ -1,28 +1,29 @@
 """Build and load the port's CUDA kernels at first use.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface.  :func:`load` compiles
-it with ``nvcc`` for Hopper (``sm_90a``) into ``build/kaolin_tpu_torch/``
-at the root of the checkout, keyed by a hash of the sources, every header
-of ``csrc/`` (``*.cuh`` and ``*.h``, which the sources include) and the
-flags (:func:`build_key`), and opens the shared library with ``ctypes``.
-Nothing there includes PyTorch's headers, so a build takes seconds, not
-minutes.
+Each ``csrc/<name>.cu`` exposes a plain C interface.  :func:`build` compiles
+sources with ``nvcc`` for Hopper (``sm_90a``) into ``build/kaolin_tpu_torch/``
+at the root of the checkout, keyed by a hash of the sources, the headers
+they include and the flags (:func:`build_key`); :func:`load` opens
+``csrc/<name>.cu``'s library with ``ctypes``.  Nothing there includes
+PyTorch's headers, so a build takes seconds, not minutes.
 
 :func:`load_module` builds ``csrc/<name>.cu`` with ``csrc/<name>_module.cpp``,
 Python entry points that include only PyTorch's tensor and Python-binding
 headers (seconds more, not the minutes of ``torch/extension.h``), and
 imports the result as an extension module: a launch then costs the host
-what a PyTorch op costs.  :func:`stream_getter` gives the current stream
-as an integer.
+what a PyTorch op costs; an entry point raises ``ValueError`` naming the
+input it refuses.  :func:`stream_getter` gives the current stream as an
+integer.
 
 There is no fallback: when ``nvcc`` cannot be found or the build fails,
-:func:`load` and :func:`load_module` raise.
+:func:`build`, :func:`load` and :func:`load_module` raise.
 """
 
 import ctypes
 import hashlib
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sysconfig
@@ -32,8 +33,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ['find_nvcc', 'build_key', 'load', 'load_module', 'stream_getter',
-           'BUILD_LOG']
+__all__ = ['find_nvcc', 'build_key', 'build', 'load', 'load_module',
+           'stream_getter', 'BUILD_LOG']
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'kaolin_tpu_torch'
@@ -48,6 +49,7 @@ _LIBS = {}
 _MODULES = {}
 _LOCKS = {}             # name -> lock: different sources build in parallel
 _LOCK = threading.Lock()
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def find_nvcc():
@@ -80,23 +82,32 @@ def _module_flags():
 
 
 def build_key(sources, flags, libs=(), csrc=CSRC):
-    """The 16 hex digits that name a build: a hash of the ``sources`` (in
-    ``csrc``), of every header ``csrc/*.cuh`` and ``csrc/*.h`` (by name and
-    bytes, so an edit to a header alone builds anew) and of the flags and
-    libraries."""
+    """The 16 hex digits that name a build: a hash of the ``sources`` (paths
+    relative to ``csrc``, or absolute), of every file they include with
+    ``#include "..."`` that exists beside the including file, transitively
+    (each by name and bytes, so an edit to a header alone builds anew), and
+    of the flags and libraries."""
     h = hashlib.sha256()
-    headers = sorted([*csrc.glob('*.cuh'), *csrc.glob('*.h')])
-    for path in [csrc / s for s in sources] + headers:
-        h.update(path.name.encode() + b'\0' + path.read_bytes() + b'\0')
+    todo, seen = [csrc / s for s in sources], set()
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen:
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        h.update(path.name.encode() + b'\0' + data + b'\0')
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(data)
+                 if (path.parent / m.decode()).is_file()]
     h.update(' '.join(tuple(flags) + tuple(libs)).encode())
     return h.hexdigest()[:16]
 
 
-def _build(name, sources, flags, libs=()):
-    """``build/kaolin_tpu_torch/lib<name>_<key>.so`` from ``sources`` (in
-    ``csrc/``) by one nvcc call with ``flags`` (``libs`` after the sources,
-    where the linker looks for them), unless already built
-    (:func:`build_key`)."""
+def build(name, sources, flags, libs=()):
+    """``build/kaolin_tpu_torch/lib<name>_<key>.so`` from ``sources`` (paths
+    relative to ``csrc/``, or absolute) by one nvcc call with ``flags``
+    (``libs`` after the sources, where the linker looks for them), unless
+    already built (:func:`build_key`); nvcc's output goes to
+    ``BUILD_LOG[name]``."""
     srcs = [CSRC / s for s in sources]
     out = BUILD_DIR / f'lib{name}_{build_key(sources, flags, libs)}.so'
     if out.exists():
@@ -111,7 +122,8 @@ def _build(name, sources, flags, libs=()):
         BUILD_LOG[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed to build '
-                               f'{", ".join(sources)}:\n{BUILD_LOG[name]}')
+                               f'{", ".join(map(str, sources))}:\n'
+                               f'{BUILD_LOG[name]}')
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -131,8 +143,8 @@ def load(name):
     """
     with _lock(name):
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(_build(name, [f'{name}.cu'],
-                                                 NVCC_FLAGS)))
+            _LIBS[name] = ctypes.CDLL(str(build(name, [f'{name}.cu'],
+                                                NVCC_FLAGS)))
         return _LIBS[name]
 
 
@@ -142,14 +154,19 @@ def load_module(name):
     first use into ``lib<name>_module_<hash>.so`` and imported.  Its entry
     points take tensors and do a PyTorch op's host work in C++.
 
-    Thread-safe; the module is not put in ``sys.modules``.
+    Thread-safe; once loaded, a dict lookup without a lock, so the kernel
+    wrappers call it at every launch.  The module is not put in
+    ``sys.modules``.
     """
+    module = _MODULES.get(name)
+    if module is not None:
+        return module
     with _lock(f'{name}_module'):
         if name not in _MODULES:
             flags, libs = _module_flags()
-            path = _build(f'{name}_module',
-                          [f'{name}.cu', f'{name}_module.cpp'],
-                          NVCC_FLAGS + flags, libs)
+            path = build(f'{name}_module',
+                         [f'{name}.cu', f'{name}_module.cpp'],
+                         NVCC_FLAGS + flags, libs)
             spec = importlib.util.spec_from_file_location(name, path)
             module = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(module)

@@ -3,16 +3,16 @@
 // called by kaolin_tpu_torch/render/mesh/_fused.py.
 //
 // Each entry point takes the wrapper's tensors, the image geometry the
-// wrapper derives from (height, width, multiplier) and the stream, makes
-// the wrapper's input test, allocates the outputs and the backward's
-// scratch with PyTorch's allocator and launches, all in C++: the host work
-// of one PyTorch op.  On the stream that torch.cuda.graph captures, the
+// wrapper derives from (height, width, multiplier) and the stream, tests
+// the inputs, allocates the outputs and the backward's scratch with
+// PyTorch's allocator and launches, all in C++: the host work of one
+// PyTorch op.  On the stream that torch.cuda.graph captures, the
 // allocations come from the graph's pool and the launches are recorded.
 //
-// Each returns the outputs, or None for inputs that fail the test (the
-// wrapper then raises the precise error); a refused launch raises
-// RuntimeError with the cudaError, and PyTorch's errors (an allocation
-// that fails) pass through as PyTorch raises them.
+// Each returns the outputs.  An input the kernel does not take raises
+// ValueError naming it (ext.h); a refused launch raises RuntimeError with
+// the cudaError, and PyTorch's errors (an allocation that fails) pass
+// through as PyTorch raises them.
 
 #include "ext.h"
 
@@ -48,7 +48,7 @@ bool affine_args(PyObject* const* args, int k, float* a) {
 
 // forward(vt, tile_ranges, chunk_bbox, H, W, T, nJ, TW, ax, bx, ay, by,
 //         eps, inv_sigma, sentinel, with_softmask, stream)
-//   -> (face_idx_sorted (B, H, W) int32, prod (B, H, W) float32) or None
+//   -> (face_idx_sorted (B, H, W) int32, prod (B, H, W) float32)
 PyObject* py_forward(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   int H, W, T, nJ, TW, with_softmask;
@@ -66,15 +66,20 @@ PyObject* py_forward(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   const at::Tensor* vt = ext::tensor(args, 0);
   const at::Tensor* tr = ext::tensor(args, 1);
   const at::Tensor* cbb = ext::tensor(args, 2);
-  if (!vt || !tr || !cbb) return nullptr;
-  if (vt->dim() != 4 || H < 0 || W < 0) Py_RETURN_NONE;
+  if (!vt || !tr || !cbb || !ext::ranked(*vt, "vt", 4)) return nullptr;
+  if (H < 0 || W < 0)
+    return PyErr_Format(PyExc_ValueError, "forward: height and width must "
+                        "be at least 0, got %d x %d", H, W);
   const int64_t B = vt->size(0), nC = vt->size(1);
   const auto dev = vt->get_device();
-  if (!ext::shaped(*vt, at::kFloat, dev, {B, nC, FC, NCOL}) ||
-      !ext::shaped(*tr, at::kInt, dev, {B, T, 2}) ||
-      !ext::shaped(*cbb, at::kFloat, dev, {B, nC, 4}) ||
-      B * H * W >= INT_MAX)
-    Py_RETURN_NONE;
+  if (!ext::shaped(*vt, "vt", at::kFloat, dev, {B, nC, FC, NCOL}) ||
+      !ext::shaped(*tr, "tile_ranges", at::kInt, dev, {B, T, 2}) ||
+      !ext::shaped(*cbb, "chunk_bbox", at::kFloat, dev, {B, nC, 4}))
+    return nullptr;
+  if (B * H * W >= INT_MAX)
+    return PyErr_Format(PyExc_ValueError, "forward: %lld pixels, but the "
+                        "kernel indexes with ints: fewer than 2^31",
+                        (long long)(B * H * W));
   at::Tensor fid = at::empty({B, H, W}, vt->options().dtype(at::kInt));
   at::Tensor prod = at::empty({B, H, W}, vt->options());
   if (!ext::launch_ok(
@@ -95,7 +100,7 @@ PyObject* py_forward(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 
 // backward(vt, chunk_tranges, chunk_bbox, g_prod, H, W, T, nJ, TW, S, U,
 //          ax, bx, ay, by, inv_sigma, sentinel, stream)
-//   -> (B, nC * FC, 6) float32 in sorted face order, or None;
+//   -> (B, nC * FC, 6) float32 in sorted face order;
 //   S blocks per chunk, U units (8-row blocks of a tile) per view
 PyObject* py_backward(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
@@ -114,16 +119,24 @@ PyObject* py_backward(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   const at::Tensor* ctr = ext::tensor(args, 1);
   const at::Tensor* cbb = ext::tensor(args, 2);
   const at::Tensor* g = ext::tensor(args, 3);
-  if (!vt || !ctr || !cbb || !g) return nullptr;
-  if (vt->dim() != 4 || H < 0 || W < 0 || S < 1 || U < 0) Py_RETURN_NONE;
+  if (!vt || !ctr || !cbb || !g || !ext::ranked(*vt, "vt", 4))
+    return nullptr;
+  if (H < 0 || W < 0 || S < 1 || U < 0)
+    return PyErr_Format(PyExc_ValueError, "backward: height and width must "
+                        "be at least 0, S at least 1 and U at least 0, got "
+                        "%d x %d, S = %d, U = %d", H, W, S, U);
   const int64_t B = vt->size(0), nC = vt->size(1);
   const auto dev = vt->get_device();
-  if (!ext::shaped(*vt, at::kFloat, dev, {B, nC, FC, NCOL}) ||
-      !ext::shaped(*ctr, at::kInt, dev, {B, nC, 2}) ||
-      !ext::shaped(*cbb, at::kFloat, dev, {B, nC, 4}) ||
-      !ext::shaped(*g, at::kFloat, dev, {B, H, W}) ||
-      B * nC * S * FC * 6 >= INT_MAX || B * U >= INT_MAX)
-    Py_RETURN_NONE;
+  if (!ext::shaped(*vt, "vt", at::kFloat, dev, {B, nC, FC, NCOL}) ||
+      !ext::shaped(*ctr, "chunk_tranges", at::kInt, dev, {B, nC, 2}) ||
+      !ext::shaped(*cbb, "chunk_bbox", at::kFloat, dev, {B, nC, 4}) ||
+      !ext::shaped(*g, "g_prod", at::kFloat, dev, {B, H, W}))
+    return nullptr;
+  if (B * nC * S * FC * 6 >= INT_MAX || B * U >= INT_MAX)
+    return PyErr_Format(PyExc_ValueError, "backward: %lld partial sums and "
+                        "%lld units, but the kernel indexes with ints: "
+                        "fewer than 2^31", (long long)(B * nC * S * FC * 6),
+                        (long long)(B * U));
   at::Tensor active = at::empty({B, U}, vt->options().dtype(at::kInt));
   at::Tensor partial = at::empty({B, nC, S, FC, 6}, vt->options());
   at::Tensor out = at::empty({B, nC * FC, 6}, vt->options());
@@ -143,11 +156,10 @@ PyObject* py_backward(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 PyMethodDef kMethods[] = {
     {"forward", (PyCFunction)(void (*)(void))py_forward, METH_FASTCALL,
      "forward(vt, tile_ranges, chunk_bbox, H, W, T, nJ, TW, ax, bx, ay, by, "
-     "eps, inv_sigma, sentinel, with_softmask, stream) -> (fid, prod) or "
-     "None (K1)"},
+     "eps, inv_sigma, sentinel, with_softmask, stream) -> (fid, prod) (K1)"},
     {"backward", (PyCFunction)(void (*)(void))py_backward, METH_FASTCALL,
      "backward(vt, chunk_tranges, chunk_bbox, g_prod, H, W, T, nJ, TW, S, U, "
-     "ax, bx, ay, by, inv_sigma, sentinel, stream) -> out or None (K2)"},
+     "ax, bx, ay, by, inv_sigma, sentinel, stream) -> out (K2)"},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "dibr_fused",

@@ -3,8 +3,8 @@
 // kaolin_tpu_torch/render/mesh/_sample.py and kaolin_tpu_torch/ops/
 // _scatter.py.
 //
-// Each entry point makes the wrapper's input test, allocates the outputs
-// and the scratch with PyTorch's allocator, and launches on the stream it
+// Each entry point tests its inputs, allocates the outputs and the
+// scratch with PyTorch's allocator, and launches on the stream it
 // is given, all in C++.  The backwards order their ids with PyTorch's
 // stable sort (at::sort(stable=true), a radix sort on the card: the one
 // library step of E2 and E3, on the current stream, which is the stream
@@ -12,10 +12,9 @@
 // captures, the allocations come from the graph's pool and the launches
 // are recorded.
 //
-// Each returns the outputs, or None for inputs that fail the test (the
-// wrapper then raises the precise error); a refused launch raises
-// RuntimeError with the cudaError, and PyTorch's errors pass through as
-// PyTorch raises them.
+// Each returns the outputs.  An input the kernels do not take raises
+// ValueError naming it (ext.h); a refused launch raises RuntimeError with
+// the cudaError, and PyTorch's errors pass through as PyTorch raises them.
 
 #include "ext.h"
 
@@ -47,20 +46,27 @@ bool sample_args(PyObject* const* args, int k, int* H, int* W, int* P,
 }
 
 // tex (B * H * W, C), x and y (Q,) with Q = B * P, all float32 on x's
-// device; sets Q, C, or false.
+// device; sets Q, C, or false with ValueError set.
 bool sample_inputs(const at::Tensor& tex, const at::Tensor& x,
                    const at::Tensor& y, int H, int W, int P, int64_t* Q,
                    int64_t* C) {
-  if (tex.dim() != 2 || x.dim() != 1 || H < 1 || W < 1 || P < 1)
+  if (!ext::ranked(tex, "tex_rows", 2) || !ext::ranked(x, "x", 1))
     return false;
   *Q = x.size(0);
   *C = tex.size(1);
+  if (H < 1 || W < 1 || P < 1 || *Q % P != 0 || *C < 1)
+    return ext::fail("bilinear sample: texture %d x %d, P = %d pixels a view "
+                     "and C = %lld channels must be at least 1, and x's %lld "
+                     "pixels a multiple of P", H, W, P, (long long)*C,
+                     (long long)*Q);
   const auto dev = x.get_device();
-  return *Q % P == 0 && *C >= 1 &&
-         ext::shaped(tex, at::kFloat, dev, {*Q / P * H * W, *C}) &&
-         ext::shaped(x, at::kFloat, dev, {*Q}) &&
-         ext::shaped(y, at::kFloat, dev, {*Q}) && 4 * *Q < INT_MAX &&
-         *Q * *C < INT_MAX;
+  return ext::shaped(tex, "tex_rows", at::kFloat, dev, {*Q / P * H * W, *C}) &&
+         ext::shaped(x, "x", at::kFloat, dev, {*Q}) &&
+         ext::shaped(y, "y", at::kFloat, dev, {*Q}) &&
+         ((4 * *Q < INT_MAX && *Q * *C < INT_MAX) ||
+          ext::fail("bilinear sample: 4 * %lld taps and %lld samples, but "
+                    "the kernels index with ints: fewer than 2^31",
+                    (long long)*Q, (long long)(*Q * *C)));
 }
 
 // The segment sums into out (N, D) (zero) of M entries with keys ``keys``.
@@ -81,7 +87,7 @@ bool segment_sum(const at::Tensor& keys, int64_t D, int64_t N, int taps_q,
       "segment_pieces_kernel");
 }
 
-// sample(tex, x, y, H, W, P, stream) -> (Q, C) float32 or None (E1)
+// sample(tex, x, y, H, W, P, stream) -> (Q, C) float32 (E1)
 PyObject* py_sample(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
   int H, W, P;
@@ -94,7 +100,7 @@ PyObject* py_sample(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   const at::Tensor* y = ext::tensor(args, 2);
   if (!tex || !x || !y) return nullptr;
   int64_t Q, C;
-  if (!sample_inputs(*tex, *x, *y, H, W, P, &Q, &C)) Py_RETURN_NONE;
+  if (!sample_inputs(*tex, *x, *y, H, W, P, &Q, &C)) return nullptr;
   at::Tensor out = at::empty({Q, C}, x->options());
   if (!ext::launch_ok(
           epilogue_bilinear_forward(tex->data_ptr(), x->data_ptr(),
@@ -107,7 +113,7 @@ PyObject* py_sample(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 }
 
 // sample_backward(tex, x, y, g, H, W, P, stream)
-//   -> (dT (B * H * W, C), dx (Q,), dy (Q,)) float32 or None (E2)
+//   -> (dT (B * H * W, C), dx (Q,), dy (Q,)) float32 (E2)
 PyObject* py_sample_backward(PyObject*, PyObject* const* args,
                              Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
@@ -123,8 +129,8 @@ PyObject* py_sample_backward(PyObject*, PyObject* const* args,
   if (!tex || !x || !y || !g) return nullptr;
   int64_t Q, C;
   if (!sample_inputs(*tex, *x, *y, H, W, P, &Q, &C) ||
-      !ext::shaped(*g, at::kFloat, x->get_device(), {Q, C}))
-    Py_RETURN_NONE;
+      !ext::shaped(*g, "g", at::kFloat, x->get_device(), {Q, C}))
+    return nullptr;
   at::Tensor dx = at::empty({Q}, x->options());
   at::Tensor dy = at::empty({Q}, x->options());
   at::Tensor keys = at::empty({4 * Q}, x->options().dtype(at::kInt));
@@ -149,7 +155,7 @@ PyObject* py_sample_backward(PyObject*, PyObject* const* args,
   END_HANDLE_TH_ERRORS
 }
 
-// scatter_rows(g, idx, N, stream) -> (N, D) float32 or None (E3):
+// scatter_rows(g, idx, N, stream) -> (N, D) float32 (E3):
 // g (P, D) float32, idx (P,) int32 on g's device
 PyObject* py_scatter_rows(PyObject*, PyObject* const* args,
                           Py_ssize_t nargs) {
@@ -161,13 +167,20 @@ PyObject* py_scatter_rows(PyObject*, PyObject* const* args,
     return nullptr;
   const at::Tensor* g = ext::tensor(args, 0);
   const at::Tensor* idx = ext::tensor(args, 1);
-  if (!g || !idx) return nullptr;
-  if (g->dim() != 2 || N < 0) Py_RETURN_NONE;
+  if (!g || !idx || !ext::ranked(*g, "g", 2)) return nullptr;
   const int64_t P = g->size(0), D = g->size(1);
+  if (N < 0 || D < 1)
+    return PyErr_Format(PyExc_ValueError, "scatter_rows: N = %d rows must be "
+                        "at least 0 and D = %lld columns at least 1", N,
+                        (long long)D);
   const auto dev = g->get_device();
-  if (D < 1 || !ext::shaped(*g, at::kFloat, dev, {P, D}) ||
-      !ext::shaped(*idx, at::kInt, dev, {P}) || (int64_t)N * D >= INT_MAX)
-    Py_RETURN_NONE;
+  if (!ext::shaped(*g, "g", at::kFloat, dev, {P, D}) ||
+      !ext::shaped(*idx, "idx", at::kInt, dev, {P}))
+    return nullptr;
+  if ((int64_t)N * D >= INT_MAX)
+    return PyErr_Format(PyExc_ValueError, "scatter_rows: %d rows of %lld "
+                        "columns, but the kernels index with ints: fewer "
+                        "than 2^31 elements", N, (long long)D);
   at::Tensor out = at::zeros({N, D}, g->options());
   if (!segment_sum(*idx, D, N, 0, *g, nullptr, nullptr, out, stream))
     return nullptr;
@@ -177,13 +190,12 @@ PyObject* py_scatter_rows(PyObject*, PyObject* const* args,
 
 PyMethodDef kMethods[] = {
     {"sample", (PyCFunction)(void (*)(void))py_sample, METH_FASTCALL,
-     "sample(tex, x, y, H, W, P, stream) -> out or None (E1)"},
+     "sample(tex, x, y, H, W, P, stream) -> out (E1)"},
     {"sample_backward", (PyCFunction)(void (*)(void))py_sample_backward,
      METH_FASTCALL,
-     "sample_backward(tex, x, y, g, H, W, P, stream) -> (dT, dx, dy) or "
-     "None (E2)"},
+     "sample_backward(tex, x, y, g, H, W, P, stream) -> (dT, dx, dy) (E2)"},
     {"scatter_rows", (PyCFunction)(void (*)(void))py_scatter_rows,
-     METH_FASTCALL, "scatter_rows(g, idx, N, stream) -> out or None (E3)"},
+     METH_FASTCALL, "scatter_rows(g, idx, N, stream) -> out (E3)"},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "epilogue",

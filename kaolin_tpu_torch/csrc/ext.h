@@ -1,20 +1,22 @@
 // Argument helpers of the extension modules' entry points (the
 // ``<name>_module.cpp`` files, built by kaolin_tpu_torch/_cuda.py::
-// load_module).  Each entry point is a METH_FASTCALL function: it reads its
-// arguments with these, returns nullptr with a Python error set when an
-// argument is not of its type, and None when a tensor fails its test (the
-// Python wrapper then raises the precise error).
+// load_module).  Each entry point is a METH_FASTCALL function: it reads and
+// tests its arguments with these, and returns nullptr with a Python error
+// set when one is not of its type (TypeError) or not what the kernel takes
+// (ValueError, naming the argument).  The entry point is the one statement
+// of its kernel's input contract: the Python wrappers test nothing again.
 
 #pragma once
 
 #include <Python.h>
 
 #include <ATen/core/Tensor.h>
+#include <torch/csrc/DynamicTypes.h>
 #include <torch/csrc/autograd/python_variable.h>
 
 #include <climits>
 #include <cstdint>
-#include <initializer_list>
+#include <string>
 
 namespace ext {
 
@@ -61,14 +63,48 @@ inline bool stream_arg(PyObject* const* args, int k, void** v) {
   return !PyErr_Occurred();
 }
 
+// False with ValueError (fmt, args) set.
+template <class... A>
+bool fail(const char* fmt, A... args) {
+  PyErr_Format(PyExc_ValueError, fmt, args...);
+  return false;
+}
+
+// Sizes as Python prints a tuple: (), (5,), (2, 3).
+inline std::string tuple(c10::IntArrayRef sizes) {
+  std::string s = "(";
+  for (size_t i = 0; i < sizes.size(); ++i)
+    s += (i ? ", " : "") + std::to_string(sizes[i]);
+  return s + (sizes.size() == 1 ? ",)" : ")");
+}
+
+// ``t`` with ``dim`` dims, or false with ValueError "<name>: expected a
+// <dim>-d tensor, got shape <shape>" set.
+inline bool ranked(const at::Tensor& t, const char* name, int64_t dim) {
+  return t.dim() == dim || fail("%s: expected a %d-d tensor, got shape %s",
+                                name, (int)dim, tuple(t.sizes()).c_str());
+}
+
 // A contiguous ``dtype`` tensor of exactly ``sizes`` on CUDA device ``dev``,
-// with fewer than 2^31 elements (the kernels index with ints).
-inline bool shaped(const at::Tensor& t, at::ScalarType dtype,
-                   c10::DeviceIndex dev,
-                   std::initializer_list<int64_t> sizes) {
-  return t.scalar_type() == dtype && t.is_cuda() && t.get_device() == dev &&
-         t.sizes() == c10::IntArrayRef(sizes) && t.is_contiguous() &&
-         t.numel() < INT_MAX;
+// with fewer than 2^31 elements (the kernels index with ints), or false with
+// ValueError set: "<name>: expected a contiguous <dtype> tensor of shape
+// <sizes> on cuda:<dev>, got <dtype> <shape> on <device>
+// (contiguous=<bool>)", or the element count.
+inline bool shaped(const at::Tensor& t, const char* name,
+                   at::ScalarType dtype, c10::DeviceIndex dev,
+                   c10::IntArrayRef sizes) {
+  if (t.scalar_type() == dtype && t.is_cuda() && t.get_device() == dev &&
+      t.sizes() == sizes && t.is_contiguous())
+    return t.numel() < INT_MAX ||
+           fail("%s: %lld elements, but the kernels index with ints: fewer "
+                "than 2^31", name, (long long)t.numel());
+  return fail("%s: expected a contiguous %S tensor of shape %s on %s, got %S "
+              "%s on %s (contiguous=%s)", name,
+              (PyObject*)torch::getTHPDtype(dtype), tuple(sizes).c_str(),
+              c10::Device(c10::kCUDA, dev).str().c_str(),
+              (PyObject*)torch::getTHPDtype(t.scalar_type()),
+              tuple(t.sizes()).c_str(), t.device().str().c_str(),
+              t.is_contiguous() ? "True" : "False");
 }
 
 // False with RuntimeError "<what> failed to launch: cudaError <rc>" set

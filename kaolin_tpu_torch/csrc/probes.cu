@@ -1,4 +1,4 @@
-// Probe kernels P1 and P2 for Hopper (sm_90a), plain C interface.
+// Probe kernels P1, P2 and P3 for Hopper (sm_90a), plain C interface.
 //
 // Replace the Pallas TPU probes scripts/probe_r5_mosaic3.py::kA..kH (P1,
 // launched by call2d) and scripts/probe_r5_stages.py::dummy_kernel (P2).
@@ -24,17 +24,19 @@
 // SMs; kB a CTA per bag whose rows the copy engine (TMA, csrc/tma.cuh)
 // streams through a ring of shared-memory slots; kC and kD a CTA per (bag,
 // 64 float4 columns) with rows loaded into registers in batches; P2 a CTA
-// per 4 KB tile, a bulk load and a bulk store through shared memory.
+// per 4 KB tile, a bulk load and a bulk store through shared memory.  P3
+// (probe_r5_kbisect.py) instantiates spc_trace.cuh's K3 at stages 1-6.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "spc_trace.cuh"
 #include "tma.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int CTA_THREADS = 256;
 constexpr int MAXV = 4;                // float4s per thread: rows <= 4096 floats
 
 __device__ __forceinline__ void add4(float4& acc, const float4 v) {
@@ -82,7 +84,7 @@ dyn_loop_kernel(const int* __restrict__ nbs, int nbs_stride,
 // make_async_copy of table rows as a ring of KB_SLOTS row slots in shared
 // memory, filled by the copy engine.  A CTA takes one bag: warp 0 is the
 // producer, the other warps the consumers, one float4 of a row a thread
-// (rows of up to MAXV x THREADS float4s loop).  Each slot has a `full`
+// (rows of up to MAXV x CTA_THREADS float4s loop).  Each slot has a `full`
 // barrier (one arrival plus the row's bytes) and an `empty` barrier (one
 // arrival per consumer warp).  The producer's lane 0 takes the bag's row
 // ids from the warp's registers (32 loaded at once), waits until slot j %
@@ -95,7 +97,7 @@ dyn_loop_kernel(const int* __restrict__ nbs, int nbs_stride,
 constexpr int KB_SLOTS = 8;
 constexpr int KB_BARRIERS = 128;        // bytes before the slots: 2 x 8 barriers
 
-__global__ void __launch_bounds__(32 + THREADS)
+__global__ void __launch_bounds__(32 + CTA_THREADS)
 row_ring_kernel(const int* __restrict__ ids, int ck,
                 const float4* __restrict__ table, float4* __restrict__ out,
                 int n4) {
@@ -219,15 +221,15 @@ bag_sum_kernel(const int* __restrict__ ids, int ck,
 // x[r, (c - s) mod C] (kE, kF); op 1: shift left by s along lanes, zero
 // fill, x[r, c] + (x[r, c + s] if c + s < C else 0) (kG); op 2: roll by s
 // along rows, x[r, c] + x[(r - s) mod R, c] (kH).
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CTA_THREADS)
 shift_kernel(const float* __restrict__ x, float* __restrict__ out, int R,
              int C, int op, int s) {
   extern __shared__ float tile[];      // (R, C)
   const int n = R * C;
   const size_t base = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += THREADS) tile[i] = x[base + i];
+  for (int i = threadIdx.x; i < n; i += CTA_THREADS) tile[i] = x[base + i];
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += THREADS) {
+  for (int i = threadIdx.x; i < n; i += CTA_THREADS) {
     const int r = i / C, c = i % C;
     float y;
     if (op == 0) {
@@ -255,9 +257,9 @@ shift_kernel(const float* __restrict__ x, float* __restrict__ out, int R,
 // slots, bulk loads with register stores, and 16-byte streaming loads and
 // stores on the persistent grid were each 4-6 % slower on the H100 (PERF.md
 // §6).  Bound by device memory: each float4 read once, written once.
-constexpr int P2_TILE4 = THREADS;
+constexpr int P2_TILE4 = CTA_THREADS;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CTA_THREADS)
 dummy_kernel(const float4* __restrict__ x, float4* __restrict__ o,
              unsigned total4) {
   __shared__ __align__(128) float4 tile[P2_TILE4];
@@ -343,13 +345,13 @@ extern "C" int probe_dyn_loop(const void* nbs, int nbs_stride, const void* x,
 extern "C" int probe_row_sum(const void* ids, int ck, const void* table,
                              void* out, int nb, int n, void* stream) {
   if (nb < 0 || (nb > 0 && (n < 4 || n % 4 != 0)) ||
-      n / 4 > MAXV * THREADS || ck < 1)
+      n / 4 > MAXV * CTA_THREADS || ck < 1)
     return (int)cudaErrorInvalidValue;
   const Setup& s = setup();
   if (s.err != cudaSuccess) return (int)s.err;
   const int n4 = n / 4;
   const int warps = (n4 + 31) / 32;
-  const int consumers = warps * 32 < THREADS ? warps * 32 : THREADS;
+  const int consumers = warps * 32 < CTA_THREADS ? warps * 32 : CTA_THREADS;
   const size_t smem = KB_BARRIERS + sizeof(float4) * (size_t)KB_SLOTS * n4;
   if (smem > s.row_sum_smem) return (int)cudaErrorInvalidValue;
   if (nb > 0)
@@ -379,7 +381,7 @@ extern "C" int probe_shift(const void* x, void* out, int nb, int R, int C,
       (size_t)R * C * sizeof(float) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   if (nb > 0)
-    shift_kernel<<<nb, THREADS, sizeof(float) * R * C,
+    shift_kernel<<<nb, CTA_THREADS, sizeof(float) * R * C,
                    (cudaStream_t)stream>>>((const float*)x, (float*)out, R, C,
                                            op, s);
   return (int)cudaGetLastError();
@@ -392,8 +394,24 @@ extern "C" int probe_dummy(const void* x, void* out, int nsteps, int n,
     return (int)cudaErrorInvalidValue;
   const unsigned total4 = (unsigned)nsteps * (n / 4);
   if (total4 > 0)
-    dummy_kernel<<<(total4 + P2_TILE4 - 1) / P2_TILE4, THREADS, 0,
+    dummy_kernel<<<(total4 + P2_TILE4 - 1) / P2_TILE4, CTA_THREADS, 0,
                    (cudaStream_t)stream>>>((const float4*)x, (float4*)out,
                                            total4);
   return (int)cudaGetLastError();
+}
+
+// P3: K3 cut at `stage` 1-6 (spc_trace.cuh); the arguments as spc_trace's.
+extern "C" int probe_trace_stage(const void* rays, const void* cell_rows,
+                                 const void* block_cells, const void* nb,
+                                 const void* block_ids, void* tn_out,
+                                 void* tf_out, void* pi_out, void* cnt_out,
+                                 int nA, int rt, int cw, int ckmax, int kbuf,
+                                 float side, int with_exit, int pidx_offset,
+                                 int stage, void* stream) {
+  constexpr decltype(&launch<6>) kStages[] = {launch<1>, launch<2>, launch<3>,
+                                              launch<4>, launch<5>, launch<6>};
+  if (stage < 1 || stage > 6) return (int)cudaErrorInvalidValue;
+  return kStages[stage - 1](rays, cell_rows, block_cells, nb, block_ids,
+                            tn_out, tf_out, pi_out, cnt_out, nA, rt, cw, ckmax,
+                            kbuf, side, with_exit, pidx_offset, stream);
 }

@@ -1,21 +1,21 @@
-// Python entry points of the probe kernels P1 and P2: the extension module
-// ``probes``, built with probes.cu by kaolin_tpu_torch/_cuda.py::load_module
-// and called by kaolin_tpu_torch/probes/_kernels.py.
+// Python entry points of the probe kernels P1, P2 and P3: the extension
+// module ``probes``, built with probes.cu by kaolin_tpu_torch/_cuda.py::
+// load_module and called by kaolin_tpu_torch/probes/_kernels.py.
 //
 // At the probes' shapes a kernel runs ~2 us on the device, less than the
 // host spends to launch it from Python.  So each entry point takes the
-// wrapper's tensors and the stream, makes the wrapper's input test,
-// allocates the output with PyTorch's allocator and launches, all in C++:
-// the host work of one PyTorch op, where ctypes, a test in Python and
-// torch.empty_like cost more (PERF.md §6).  Only PyTorch's tensor and
-// Python-binding headers are included, so the build takes seconds.
+// wrapper's tensors and the stream, tests the inputs, allocates the output
+// with PyTorch's allocator and launches, all in C++: the host work of one
+// PyTorch op, where ctypes, a test in Python and torch.empty_like cost
+// more (PERF.md §6).  Only PyTorch's tensor and Python-binding headers are
+// included, so the build takes seconds.
 //
-// Each returns the output, or None for inputs that fail the test (the
-// wrapper then raises the precise error); a refused launch raises
-// RuntimeError with the cudaError, and PyTorch's errors (an allocation
-// that fails) pass through as PyTorch raises them.
+// Each returns the output (P3: whether it launched, as K3's entry).  An
+// input the kernel does not take raises ValueError naming it; a refused
+// launch raises RuntimeError with the cudaError, and PyTorch's errors (an
+// allocation that fails) pass through as PyTorch raises them.
 
-#include "ext.h"
+#include "spc_trace_entry.h"
 
 #include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
@@ -30,20 +30,15 @@ int probe_bag_sum(const void* ids, int ck, const void* nbs, int nbs_stride,
 int probe_shift(const void* x, void* out, int nb, int R, int C, int op, int s,
                 void* stream);
 int probe_dummy(const void* x, void* out, int nsteps, int n, void* stream);
+int probe_trace_stage(const void* rays, const void* cell_rows,
+                      const void* block_cells, const void* nb,
+                      const void* block_ids, void* tn_out, void* tf_out,
+                      void* pi_out, void* cnt_out, int nA, int rt, int cw,
+                      int ckmax, int kbuf, float side, int with_exit,
+                      int pidx_offset, int stage, void* stream);
 }
 
 namespace {
-
-// The wrappers' test of one input: a contiguous, 16-byte aligned ``dtype``
-// tensor of ``ndim`` dims (any for -1, at least 1) on CUDA device ``dev``,
-// with fewer than 2^31 elements (the kernels index with ints).
-bool ok(const at::Tensor& t, at::ScalarType dtype, int64_t ndim,
-        c10::DeviceIndex dev) {
-  return t.scalar_type() == dtype && t.is_cuda() && t.get_device() == dev &&
-         (ndim < 0 ? t.dim() >= 1 : t.dim() == ndim) && t.is_contiguous() &&
-         t.numel() < INT_MAX &&
-         (reinterpret_cast<uintptr_t>(t.data_ptr()) & 15) == 0;
-}
 
 // Floats in one row t[b] (0 for no rows).
 int row(const at::Tensor& t) {
@@ -51,13 +46,38 @@ int row(const at::Tensor& t) {
   return nb ? (int)(t.numel() / nb) : 0;
 }
 
+// The test of one input: a contiguous, 16-byte aligned ``dtype`` tensor of
+// ``ndim`` dims (any for -1, at least 1) on CUDA device ``dev``, with fewer
+// than 2^31 elements (the kernels index with ints), or false with
+// ValueError set.
+bool ok(const at::Tensor& t, const char* name, at::ScalarType dtype,
+        int64_t ndim, c10::DeviceIndex dev) {
+  return ext::ranked(t, name, ndim >= 0 ? ndim : t.dim() ? t.dim() : 1) &&
+         ext::shaped(t, name, dtype, dev, t.sizes()) &&
+         ((reinterpret_cast<uintptr_t>(t.data_ptr()) & 15) == 0 ||
+          ext::fail("%s: expected a 16-byte aligned tensor", name));
+}
+
+// nbs (nb, >= 1) int32 on ``dev`` (its column 0 is read), or false with
+// ValueError set.
+bool counts_ok(const at::Tensor& nbs, int64_t nb, c10::DeviceIndex dev) {
+  return ok(nbs, "nbs", at::kInt, 2, dev) &&
+         ((nbs.size(0) == nb && nbs.size(1) >= 1) ||
+          ext::fail("nbs: expected %lld rows of at least one count, got %s",
+                    (long long)nb, ext::tuple(nbs.sizes()).c_str()));
+}
+
+// x[b] a multiple of 4 floats (the kernels move float4s), or false with
+// ValueError set.
+bool rows_of_4(const at::Tensor& x, const char* entry) {
+  return row(x) % 4 == 0 ||
+         ext::fail("%s: x[b] must hold a multiple of 4 floats, got x %s",
+                   entry, ext::tuple(x.sizes()).c_str());
+}
+
 PyObject* launched(int rc, const char* entry, at::Tensor&& out) {
-  if (rc != 0) {
-    PyErr_Format(PyExc_RuntimeError,
-                 "probe kernel %s failed to launch: cudaError %d", entry, rc);
-    return nullptr;
-  }
-  return THPVariable_Wrap(std::move(out));
+  return ext::launch_ok(rc, entry) ? THPVariable_Wrap(std::move(out))
+                                   : nullptr;
 }
 
 // dyn_loop(nbs, x, stream): kA, out[b] = x[b] added nbs[b, 0] times.
@@ -71,9 +91,9 @@ PyObject* py_dyn_loop(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   const at::Tensor* x = ext::tensor(args, 1);
   if (!nbs || !x) return nullptr;
   const auto dev = x->get_device();
-  if (!ok(*x, at::kFloat, -1, dev) || !ok(*nbs, at::kInt, 2, dev) ||
-      nbs->size(0) != x->size(0) || nbs->size(1) < 1 || row(*x) % 4)
-    Py_RETURN_NONE;
+  if (!ok(*x, "x", at::kFloat, -1, dev) || !counts_ok(*nbs, x->size(0), dev) ||
+      !rows_of_4(*x, "dyn_loop"))
+    return nullptr;
   at::Tensor out = at::empty_like(*x);
   return launched(probe_dyn_loop(nbs->data_ptr(), (int)nbs->size(1),
                                  x->data_ptr(), out.data_ptr(),
@@ -83,14 +103,24 @@ PyObject* py_dyn_loop(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 }
 
 // The row sums' shared test: ids (nb, 1, CK) int32, table rows shaped like
-// x[b] float32, x (only its shape is read) on the same device.
+// x[b] float32, x (only its shape is read) on the same device; or false
+// with ValueError set.
 bool rows_ok(const at::Tensor& ids, const at::Tensor& table,
-             const at::Tensor& x) {
+             const at::Tensor& x, const char* entry) {
   const auto dev = x.get_device();
-  return x.is_cuda() && x.dim() >= 1 && x.numel() < INT_MAX &&
-         ok(ids, at::kInt, 3, dev) && ok(table, at::kFloat, -1, dev) &&
-         ids.size(0) == x.size(0) && ids.size(1) == 1 &&
-         table.sizes().slice(1) == x.sizes().slice(1) && row(x) % 4 == 0;
+  if (!x.is_cuda() || x.dim() < 1 || x.numel() >= INT_MAX)
+    return ext::fail("x: expected a CUDA tensor of at least one dim in fewer "
+                     "than 2^31 elements, got %s on %s",
+                     ext::tuple(x.sizes()).c_str(), x.device().str().c_str());
+  return ok(ids, "ids", at::kInt, 3, dev) &&
+         ok(table, "table", at::kFloat, -1, dev) && rows_of_4(x, entry) &&
+         ((ids.size(0) == x.size(0) && ids.size(1) == 1 &&
+           table.sizes().slice(1) == x.sizes().slice(1)) ||
+          ext::fail("%s: ids must be (%lld, 1, CK) and table rows shaped "
+                    "like x[b]; got x %s, ids %s, table %s", entry,
+                    (long long)x.size(0), ext::tuple(x.sizes()).c_str(),
+                    ext::tuple(ids.sizes()).c_str(),
+                    ext::tuple(table.sizes()).c_str()));
 }
 
 // row_sum(ids, table, x, stream): kB, every row through the TMA ring.
@@ -104,7 +134,7 @@ PyObject* py_row_sum(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   const at::Tensor* table = ext::tensor(args, 1);
   const at::Tensor* x = ext::tensor(args, 2);
   if (!ids || !table || !x) return nullptr;
-  if (!rows_ok(*ids, *table, *x)) Py_RETURN_NONE;
+  if (!rows_ok(*ids, *table, *x, "row_sum")) return nullptr;
   at::Tensor out = at::empty(x->sizes(), table->options());
   return launched(probe_row_sum(ids->data_ptr(), (int)ids->size(2),
                                 table->data_ptr(), out.data_ptr(),
@@ -127,10 +157,9 @@ PyObject* py_bag_sum(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   const at::Tensor* table = ext::tensor(args, 2);
   const at::Tensor* x = ext::tensor(args, 3);
   if ((!nbs && args[0] != Py_None) || !ids || !table || !x) return nullptr;
-  if (!rows_ok(*ids, *table, *x) ||
-      (nbs && (!ok(*nbs, at::kInt, 2, x->get_device()) ||
-               nbs->size(0) != x->size(0) || nbs->size(1) < 1)))
-    Py_RETURN_NONE;
+  if (!rows_ok(*ids, *table, *x, "bag_sum") ||
+      (nbs && !counts_ok(*nbs, x->size(0), x->get_device())))
+    return nullptr;
   at::Tensor out = at::empty(x->sizes(), table->options());
   return launched(probe_bag_sum(ids->data_ptr(), (int)ids->size(2),
                                 nbs ? nbs->data_ptr() : nullptr,
@@ -151,7 +180,7 @@ PyObject* py_shift(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
     return nullptr;
   const at::Tensor* x = ext::tensor(args, 0);
   if (!x) return nullptr;
-  if (!ok(*x, at::kFloat, 3, x->get_device())) Py_RETURN_NONE;
+  if (!ok(*x, "x", at::kFloat, 3, x->get_device())) return nullptr;
   at::Tensor out = at::empty_like(*x);
   return launched(probe_shift(x->data_ptr(), out.data_ptr(), (int)x->size(0),
                               (int)x->size(1), (int)x->size(2), op, s,
@@ -168,8 +197,9 @@ PyObject* py_dummy(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
     return nullptr;
   const at::Tensor* x = ext::tensor(args, 0);
   if (!x) return nullptr;
-  if (!ok(*x, at::kFloat, -1, x->get_device()) || row(*x) % 4)
-    Py_RETURN_NONE;
+  if (!ok(*x, "x", at::kFloat, -1, x->get_device()) ||
+      !rows_of_4(*x, "dummy"))
+    return nullptr;
   at::Tensor out = at::empty_like(*x);
   return launched(probe_dummy(x->data_ptr(), out.data_ptr(), (int)x->size(0),
                               row(*x), stream),
@@ -177,21 +207,51 @@ PyObject* py_dummy(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   END_HANDLE_TH_ERRORS
 }
 
+// trace_stage(rays, cell_rows, block_cells, nb, block_ids, t_near, t_far,
+//             pidx, count, kbuf, side, with_exit, pidx_offset, stage,
+//             stream) -> True or False: P3, K3's entry with a stage.
+PyObject* py_trace_stage(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  k3::Args a;
+  int stage;
+  void* stream;
+  if (!ext::args_ok(nargs, 15, "trace_stage") || !k3::read(args, &a) ||
+      !ext::int_arg(args, 13, &stage) || !ext::stream_arg(args, 14, &stream))
+    return nullptr;
+  if (stage < 1 || stage > 6)
+    return PyErr_Format(PyExc_ValueError, "trace_stage: stage must be 1-6, "
+                        "got %d", stage);
+  if (a.nA == 0) Py_RETURN_FALSE;
+  void* const* p = a.p;
+  if (!ext::launch_ok(
+          probe_trace_stage(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7],
+                            p[8], a.nA, a.rt, a.cw, a.ckmax, a.kbuf, a.side,
+                            a.with_exit, a.pidx_offset, stage, stream),
+          "spc_trace_kernel"))
+    return nullptr;
+  Py_RETURN_TRUE;
+  END_HANDLE_TH_ERRORS
+}
+
 PyMethodDef kMethods[] = {
     {"dyn_loop", (PyCFunction)(void (*)(void))py_dyn_loop, METH_FASTCALL,
-     "dyn_loop(nbs, x, stream) -> out or None (kA)"},
+     "dyn_loop(nbs, x, stream) -> out (kA)"},
     {"row_sum", (PyCFunction)(void (*)(void))py_row_sum, METH_FASTCALL,
-     "row_sum(ids, table, x, stream) -> out or None (kB)"},
+     "row_sum(ids, table, x, stream) -> out (kB)"},
     {"bag_sum", (PyCFunction)(void (*)(void))py_bag_sum, METH_FASTCALL,
-     "bag_sum(nbs or None, ids, table, x, stream) -> out or None (kD, kC)"},
+     "bag_sum(nbs or None, ids, table, x, stream) -> out (kD, kC)"},
     {"shift", (PyCFunction)(void (*)(void))py_shift, METH_FASTCALL,
-     "shift(x, op, s, stream) -> out or None (kE..kH)"},
+     "shift(x, op, s, stream) -> out (kE..kH)"},
     {"dummy", (PyCFunction)(void (*)(void))py_dummy, METH_FASTCALL,
-     "dummy(x, stream) -> out or None (P2)"},
+     "dummy(x, stream) -> out (P2)"},
+    {"trace_stage", (PyCFunction)(void (*)(void))py_trace_stage, METH_FASTCALL,
+     "trace_stage(rays, cell_rows, block_cells, nb, block_ids, t_near, "
+     "t_far, pidx, count, kbuf, side, with_exit, pidx_offset, stage, stream) "
+     "-> launched (P3)"},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "probes",
-                       "Launches of the probe kernels P1 and P2.", -1,
+                       "Launches of the probe kernels P1, P2 and P3.", -1,
                        kMethods};
 
 }  // namespace

@@ -6,9 +6,9 @@
 // The entry point tests the inputs, allocates the outputs (and, where a
 // super-tile's list does not fit in shared memory, its scratch) with
 // PyTorch's allocator, and launches on the stream it is given, all in C++.
-// It returns (n_b, blk_ids, sat), or None for inputs that fail the test
-// (the wrapper then raises the precise error); a refused launch raises
-// RuntimeError with the cudaError.
+// It returns (n_b, blk_ids, sat).  An input the kernel does not take raises
+// ValueError naming it (ext.h); a refused launch raises RuntimeError with
+// the cudaError.
 
 #include "ext.h"
 
@@ -24,7 +24,7 @@ int spc_cull(const void* blo, const void* bhi, const void* o, const void* d,
 namespace {
 
 // cull(blo, bhi, o, d, cs, ck_max, stream)
-//   -> (n_b (nB,) int64, blk_ids (nB, ck_max) int32, sat () bool) or None:
+//   -> (n_b (nB,) int64, blk_ids (nB, ck_max) int32, sat () bool):
 // blo, bhi (Mc + 1, 3), o, d (nB, rt, 3) float32 on o's device, nB a
 // multiple of 64, 1 <= rt <= 32
 PyObject* py_cull(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
@@ -38,18 +38,26 @@ PyObject* py_cull(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   for (int k = 0; k < 4; ++k)
     if (!(t[k] = ext::tensor(args, k))) return nullptr;
   const at::Tensor &blo = *t[0], &bhi = *t[1], &o = *t[2], &d = *t[3];
-  if (blo.dim() != 2 || o.dim() != 3 || cs < 0 || ck_max < 0)
-    Py_RETURN_NONE;
+  if (!ext::ranked(blo, "blo", 2) || !ext::ranked(o, "o", 3)) return nullptr;
   const int64_t M1 = blo.size(0), nB = o.size(0), rt = o.size(1);
   const int64_t nS = nB / 64;
+  if (cs < 0 || ck_max < 0 || M1 < 1 || nB % 64 != 0 || rt < 1 || rt > 32)
+    return PyErr_Format(PyExc_ValueError, "cull: cs = %d and ck_max = %d "
+                        "must be at least 0, the cell table hold its dump "
+                        "row, and o %s whole super-tiles of 64 blocks of 1 "
+                        "to 32 rays", cs, ck_max,
+                        ext::tuple(o.sizes()).c_str());
   const auto dev = o.get_device();
-  if (M1 < 1 || nB % 64 != 0 || rt < 1 || rt > 32 ||
-      !ext::shaped(blo, at::kFloat, dev, {M1, 3}) ||
-      !ext::shaped(bhi, at::kFloat, dev, {M1, 3}) ||
-      !ext::shaped(o, at::kFloat, dev, {nB, rt, 3}) ||
-      !ext::shaped(d, at::kFloat, dev, {nB, rt, 3}) ||
-      nB * ck_max >= INT_MAX || nS * cs >= INT_MAX)
-    Py_RETURN_NONE;
+  if (!ext::shaped(blo, "blo", at::kFloat, dev, {M1, 3}) ||
+      !ext::shaped(bhi, "bhi", at::kFloat, dev, {M1, 3}) ||
+      !ext::shaped(o, "o", at::kFloat, dev, {nB, rt, 3}) ||
+      !ext::shaped(d, "d", at::kFloat, dev, {nB, rt, 3}))
+    return nullptr;
+  if (nB * ck_max >= INT_MAX || nS * cs >= INT_MAX)
+    return PyErr_Format(PyExc_ValueError, "cull: %lld block candidates and "
+                        "%lld super-tile candidates, but the kernel indexes "
+                        "with ints: fewer than 2^31", (long long)(nB * ck_max),
+                        (long long)(nS * cs));
   const auto ints = o.options().dtype(at::kInt);
   at::Tensor n_b = at::empty({nB}, o.options().dtype(at::kLong));
   at::Tensor ids = at::empty({nB, (int64_t)ck_max}, ints);
@@ -75,8 +83,7 @@ PyObject* py_cull(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 
 PyMethodDef kMethods[] = {
     {"cull", (PyCFunction)(void (*)(void))py_cull, METH_FASTCALL,
-     "cull(blo, bhi, o, d, cs, ck_max, stream) -> (n_b, blk_ids, sat) or "
-     "None"},
+     "cull(blo, bhi, o, d, cs, ck_max, stream) -> (n_b, blk_ids, sat)"},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "spc_cull",

@@ -18,20 +18,11 @@ replayed CUDA graph adds what it holds
 
 import torch
 
+from kaolin_tpu_torch import _cuda
+
 __all__ = ['LAUNCHES']
 
 LAUNCHES = {'scatter': 0}
-
-_ext = _stream = None       # the extension module, the stream getter
-
-
-def _bind():
-    global _ext, _stream
-    if _ext is None:
-        from kaolin_tpu_torch import _cuda
-        _stream = _cuda.stream_getter()
-        _ext = _cuda.load_module('epilogue')
-    return _ext
 
 
 def _scatter_rows_torch(g, idx, num_rows):
@@ -47,16 +38,8 @@ def _scatter_rows_cuda(g, idx, num_rows):
     int64 (taken as int32)."""
     rows = g.reshape(g.shape[0], -1)
     idx32 = idx.to(torch.int32).contiguous()
-    out = (_ext or _bind()).scatter_rows(rows, idx32, num_rows,
-                                         _stream(g.get_device()))
-    if out is None:
-        from kaolin_tpu_torch.render.mesh._fused import _check
-        P, D = rows.shape
-        _check('g', rows, torch.float32, (P, D), g.device)
-        _check('idx', idx32, torch.int32, (P,), g.device)
-        raise ValueError(f'scatter_rows: {num_rows} rows of {D} columns '
-                         'must hold fewer than 2^31 elements, and at least '
-                         'one column')
+    out = _cuda.load_module('epilogue').scatter_rows(
+        rows, idx32, num_rows, _cuda.stream_getter()(g.get_device()))
     LAUNCHES['scatter'] += 1
     return out.reshape((num_rows,) + tuple(g.shape[1:]))
 

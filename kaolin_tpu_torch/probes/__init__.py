@@ -14,8 +14,9 @@ the same of the CUDA port, with the scripts' names and inputs:
   cell by stage (culling candidates, block order, input gathers, the whole
   trace, output fills);
 * :mod:`.kbisect` (``probe_r5_kbisect.py``, P3): K3 cut at six stages
-  (:func:`~kaolin_tpu_torch.render.spc._trace.trace_staged`), on the
-  script's inputs, a scene with hits and the SPC cell.
+  (:func:`~kaolin_tpu_torch.probes._kernels.trace_staged`, instances of
+  K3's template built in the probes' module), on the script's inputs, a
+  scene with hits and the SPC cell.
 
 :mod:`.k1_clocks` has no TPU counterpart: it reads the per-CTA clocks of
 the forward kernel K1 at the DIB-R cell from an instrumented copy of its

@@ -1,27 +1,35 @@
-"""Probe kernels P1 (kA..kH) and P2 (the dummy grid): wrappers and plain
-versions.
+"""Probe kernels P1 (kA..kH), P2 (the dummy grid) and P3 (K3 by stage):
+wrappers and plain versions.
 
-Ports of the Pallas TPU probes ``scripts/probe_r5_mosaic3.py::kA..kH`` and
-``scripts/probe_r5_stages.py::dummy_kernel``; the CUDA kernels are in
-``csrc/probes.cu``.  Layouts follow the scripts: ``x`` is (NB, R, C)
+Ports of the Pallas TPU probes ``scripts/probe_r5_mosaic3.py::kA..kH``,
+``scripts/probe_r5_stages.py::dummy_kernel`` and
+``scripts/probe_r5_kbisect.py::staged_kernel``; the CUDA kernels are in
+``csrc/probes.cu``, P3's as instances of K3's template
+(``csrc/spc_trace.cuh``).  Layouts follow the scripts: ``x`` is (NB, R, C)
 float32 (NB grid steps), ``nbs`` is (NB, 2) int32 of which column 0 is
 read, ``ids`` is (NB, 1, CK) int32 rows of ``table`` (M, R, C) float32.
+P3 takes K3's arguments (:func:`~kaolin_tpu_torch.render.spc._trace.trace`).
 
-CPU tensors run the plain PyTorch versions (``PLAIN``); CUDA tensors
-launch the kernel or raise.  ``LAUNCHES`` counts launches by
-wrapper name (a call captured in a CUDA graph counts once, its replays
-not at all).  Every kernel equals its plain version bit for bit: the sums
-run in the scripts' order.
+CPU tensors run the plain PyTorch versions (``PLAIN``,
+:func:`_trace_staged_torch`); CUDA tensors launch the kernel or raise.
+``LAUNCHES`` counts launches by wrapper name, P3's by stage (a call
+captured in a CUDA graph counts once, its replays not at all).  Every
+kernel equals its plain version bit for bit: the sums run in the scripts'
+order.
 """
 
 import torch
 
-__all__ = ['kA', 'kB', 'kC', 'kD', 'kE', 'kF', 'kG', 'kH', 'dummy',
-           'LAUNCHES', 'PLAIN', 'KB_SLOTS', 'P2_TILE_BYTES',
-           'kb_smem_bytes']
+from kaolin_tpu_torch import _cuda
+from kaolin_tpu_torch.render.spc import _trace
 
+__all__ = ['kA', 'kB', 'kC', 'kD', 'kE', 'kF', 'kG', 'kH', 'dummy',
+           'trace_staged', 'STAGES', 'LAUNCHES', 'PLAIN', 'KB_SLOTS',
+           'P2_TILE_BYTES', 'kb_smem_bytes']
+
+STAGES = (1, 2, 3, 4, 5, 6)  # the cuts of trace_staged; 6 is K3
 LAUNCHES = {k: 0 for k in ('kA', 'kB', 'kC', 'kD', 'kE', 'kF', 'kG', 'kH',
-                           'dummy')}
+                           'dummy', *(f'stage{s}' for s in STAGES))}
 
 ROLL_LANES, SHIFT_LANES, ROLL_ROWS = 0, 1, 2     # probe_shift's ops
 # kB's ring in csrc/probes.cu (KB_SLOTS row slots after KB_BARRIERS bytes of
@@ -97,35 +105,9 @@ PLAIN = {
 # ---------------------------------------------------------------------------
 # CUDA launches: each wrapper hands its tensors and the current stream to an
 # entry point of the extension module (csrc/probes_module.cpp), which tests
-# them, allocates the output and launches in C++, so a call costs the host
-# about what one PyTorch op costs.  Inputs it refuses come back as None and
-# are diagnosed here.
-
-_F32, _I32 = torch.float32, torch.int32
-_ext = _stream = None       # the extension module, the stream getter
-
-
-def _bind():
-    global _ext, _stream
-    if _ext is None:
-        from kaolin_tpu_torch import _cuda
-        _stream = _cuda.stream_getter()
-        _ext = _cuda.load_module('probes')
-    return _ext
-
-
-def _check(name, t, dtype, ndim, index):
-    """Raise ValueError unless ``t`` is a contiguous, 16-byte aligned
-    ``dtype`` tensor of ``ndim`` dims (any for None) on CUDA device
-    ``index``: the extension's test of one input."""
-    if (t.dtype is not dtype or t.get_device() != index
-            or t.data_ptr() & 15 or (ndim is not None and t.dim() != ndim)
-            or not t.is_contiguous()):
-        raise ValueError(
-            f'{name}: expected a contiguous, 16-byte aligned {dtype} tensor '
-            f'of {ndim or "any number of"} dims on cuda:{index}, got '
-            f'{t.dtype} {tuple(t.shape)} on {t.device}')
-
+# them (and raises for what the kernel does not take), allocates the output
+# and launches in C++, so a call costs the host about what one PyTorch op
+# costs.
 
 def _plain(name, x, *args):
     """The plain version, for a CPU tensor ``x``; other devices raise."""
@@ -134,40 +116,16 @@ def _plain(name, x, *args):
     return PLAIN[name](*args)
 
 
-def _reject(name, x, tensors, nbs=None):
-    """Raise for inputs the extension refused: the first of ``tensors``
-    ((label, tensor, dtype, ndim)) that fails its test (:func:`_check`), else
-    ``nbs`` without a row per b (its column 0 is read), else the shapes
-    (rows of x a multiple of 4 floats, the kernels move float4s; with ids
-    and a table, ids (b, 1, CK) and table rows shaped like x[b])."""
-    index = x.get_device()
-    for label, t, dtype, ndim in tensors:
-        _check(label, t, dtype, ndim, index)
-    nb = x.shape[0] if x.dim() else None
-    if nbs is not None and (nbs.shape[0] != nb or not nbs.shape[1]):
-        raise ValueError(f'nbs: expected {nb} rows of at least one count, '
-                         f'got {tuple(nbs.shape)}')
-    rows = (f', ids be ({nb}, 1, CK) and table rows shaped like x[b]'
-            if any(label == 'ids' for label, *_ in tensors) else '')
-    raise ValueError(f'{name}: x[b] must hold a multiple of 4 floats{rows}, '
-                     f'in fewer than 2^31 elements; got x {tuple(x.shape)}'
-                     + ''.join(f', {label} {tuple(t.shape)}'
-                               for label, t, *_ in tensors if label != 'x'))
-
-
 def _row_sum(name, ids, table, x, nbs=None):
     """kB through the TMA ring (``row_sum``); kC (``nbs`` None: every count
     CK) and kD through kD's kernel (``bag_sum``)."""
     if not x.is_cuda:
         return (_plain(name, x, nbs, ids, table, x) if name == 'kD'
                 else _plain(name, x, ids, table, x))
-    ext = _ext or _bind()
-    stream = _stream(x.get_device())
+    ext = _cuda.load_module('probes')
+    stream = _cuda.stream_getter()(x.get_device())
     out = (ext.row_sum(ids, table, x, stream) if name == 'kB'
            else ext.bag_sum(nbs, ids, table, x, stream))
-    if out is None:
-        _reject(name, x, (('ids', ids, _I32, 3), ('table', table, _F32, None))
-                + (() if nbs is None else (('nbs', nbs, _I32, 2),)), nbs)
     LAUNCHES[name] += 1
     return out
 
@@ -177,9 +135,8 @@ def kA(nbs, x):
     time)."""
     if not x.is_cuda:
         return _plain('kA', x, nbs, x)
-    out = (_ext or _bind()).dyn_loop(nbs, x, _stream(x.get_device()))
-    if out is None:
-        _reject('kA', x, (('x', x, _F32, None), ('nbs', nbs, _I32, 2)), nbs)
+    out = _cuda.load_module('probes').dyn_loop(
+        nbs, x, _cuda.stream_getter()(x.get_device()))
     LAUNCHES['kA'] += 1
     return out
 
@@ -206,9 +163,8 @@ def _shift(name, x):
     op, s = _SHIFTS[name]
     if not x.is_cuda:
         return _plain(name, x, x)
-    out = (_ext or _bind()).shift(x, op, s, _stream(x.get_device()))
-    if out is None:
-        _reject(name, x, (('x', x, _F32, 3),))
+    out = _cuda.load_module('probes').shift(
+        x, op, s, _cuda.stream_getter()(x.get_device()))
     LAUNCHES[name] += 1
     return out
 
@@ -238,8 +194,92 @@ def dummy(x):
     and out of shared memory by the copy engine."""
     if not x.is_cuda:
         return _plain('dummy', x, x)
-    out = (_ext or _bind()).dummy(x, _stream(x.get_device()))
-    if out is None:
-        _reject('dummy', x, (('x', x, _F32, None),))
+    out = _cuda.load_module('probes').dummy(
+        x, _cuda.stream_getter()(x.get_device()))
     LAUNCHES['dummy'] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# P3: K3 cut at a stage (the port of scripts/probe_r5_kbisect.py)
+
+def _trace_staged_torch(stage, rays, cell_rows, block_cells, nb, block_ids,
+                        kbuf, half, with_exit, num_blocks, pidx_offset=0,
+                        out=None):
+    """Plain PyTorch version of :func:`trace_staged`: K3's
+    (``_trace._trace_torch``) for stages 5 and 6, which give its result,
+    and its dense pairs (``_trace._chunks``) cut short for stages 1-4."""
+    if stage >= 5:
+        return _trace._trace_torch(rays, cell_rows, block_cells, nb,
+                                   block_ids, kbuf, half, with_exit,
+                                   num_blocks, pidx_offset, out)
+    if out is None:
+        out = _trace._outputs(num_blocks, rays.shape[1], kbuf, rays.device)
+    tn_out, tf_out, pi_out, cnt_out = out
+    cw = cell_rows.shape[2]
+    for a0, a1, hit, tn, tf, pid in _trace._chunks(
+            rays, cell_rows, block_cells, nb, half, pidx_offset):
+        bids = block_ids[a0:a1]
+        cnt_out[bids] = hit.sum(dim=-1, dtype=torch.int32)
+        if stage == 3:      # the last candidate cell's hits, in lane order
+            n, rt, C = hit.shape[0], hit.shape[1], hit.shape[2] // cw
+            last = (nb[a0:a1].long() - 1).clamp(min=0)[:, None, None, None]
+            hit, tn = (x.reshape(n, rt, C, cw).gather(
+                2, last.expand(n, rt, 1, cw))[:, :, 0] for x in (hit, tn))
+        if stage >= 3:
+            pack = _trace._packer(hit, kbuf)
+            tn_out[bids] = pack(tn, torch.inf)
+        if stage == 4:
+            pi_out[bids] = pack(pid, -1)
+            if with_exit:
+                tf_out[bids] = pack(tf, torch.inf)
+    return out
+
+
+def _trace_staged_cuda(stage, rays, cell_rows, block_cells, nb, block_ids,
+                       kbuf, half, with_exit, out, pidx_offset=0):
+    """Launch K3's cut at ``stage`` into preallocated outputs ``out`` (as
+    ``_trace._outputs`` makes them) and add one to
+    ``LAUNCHES[f'stage{stage}']``."""
+    _trace._launchable(rays.shape[1], kbuf, with_exit)
+    if _cuda.load_module('probes').trace_stage(
+            rays, cell_rows, block_cells, nb, block_ids, *out, int(kbuf),
+            float(2. * half), int(bool(with_exit)), int(pidx_offset),
+            int(stage), _cuda.stream_getter()(rays.get_device())):
+        LAUNCHES[f'stage{stage}'] += 1
+    return out
+
+
+def trace_staged(stage, rays, cell_rows, block_cells, nb, block_ids, kbuf,
+                 half, with_exit, num_blocks, pidx_offset=0):
+    """K3 cut at ``stage``, for measuring its parts (arguments as
+    ``_trace.trace``).
+
+    What each stage adds, and what it writes over the defaults:
+
+    1. the slab tests and the exact per-ray count: count only;
+    2. each hit's rank among the ray's hits (kept, unused): count only;
+    3. the packing of each cell's hits: t_near holds the ray's hits in the
+       block's last candidate cell, in lane order (first kbuf), inf after;
+    4. the k-buffer append: the first kbuf hits in candidate order,
+       unsorted (t_near, pidx, and t_far when ``with_exit``);
+    5. a sort by t_near of all kbuf entries, padding included;
+    6. the sort of the min(count, kbuf) kept entries only: K3's output.
+
+    Stages 5 and 6 give the same result; they differ in cost.  CPU tensors
+    run :func:`_trace_staged_torch`; CUDA tensors launch the kernel's
+    ``STAGE`` instance in the probes' module (counted in
+    ``LAUNCHES[f'stage{stage}']``) or raise.
+    """
+    if stage not in STAGES:
+        raise ValueError(f'stage must be one of {STAGES}, got {stage}')
+    if rays.device.type == 'cpu':
+        return _trace_staged_torch(stage, rays, cell_rows, block_cells, nb,
+                                   block_ids, kbuf, half, with_exit,
+                                   num_blocks, pidx_offset)
+    if rays.device.type != 'cuda':
+        raise ValueError(f'no spc trace for device {rays.device}')
+    out = _trace._outputs(num_blocks, rays.shape[1], kbuf, rays.device)
+    return _trace_staged_cuda(stage, rays, cell_rows, block_cells, nb,
+                              block_ids, kbuf, half, with_exit, out,
+                              pidx_offset)

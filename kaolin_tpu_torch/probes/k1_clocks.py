@@ -18,7 +18,6 @@ prints the card and one JSON object.
 
 import ctypes
 import hashlib
-import subprocess
 
 import numpy as np
 import torch
@@ -89,21 +88,15 @@ def patched_source():
 
 
 def _build():
-    """Build the patched source into the build directory; its CDLL."""
+    """Build the patched source (written to the build directory, named by
+    its hash) with the package's builder; its CDLL."""
     src = patched_source()
     tag = hashlib.sha256(src.encode()).hexdigest()[:16]
-    out_dir = _cuda.BUILD_DIR / 'k1_clocks'
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cu, so = out_dir / f'k1_clocks_{tag}.cu', out_dir / f'k1_clocks_{tag}.so'
-    if not so.exists():
+    cu = _cuda.BUILD_DIR / 'k1_clocks' / f'k1_clocks_{tag}.cu'
+    if not cu.exists():
+        cu.parent.mkdir(parents=True, exist_ok=True)
         cu.write_text(src)
-        proc = subprocess.run([_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, '-o',
-                               str(so), str(cu)], capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on the patched source:\n'
-                               f'{proc.stdout}{proc.stderr}')
-    lib = ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(_cuda.build('k1_clocks', [cu], _cuda.NVCC_FLAGS)))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dibr_fused_forward.argtypes = [
         p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, f, f, f, f, i, p]

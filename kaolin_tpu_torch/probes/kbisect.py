@@ -2,11 +2,11 @@
 
 The TPU script compiled the trace kernel cut after each of its parts to
 find which one Mosaic refused.  Here the same cuts are instances of K3's
-own kernel (:func:`~kaolin_tpu_torch.render.spc._trace.trace_staged`,
-``csrc/spc_trace.cu``), and the question is what each part costs: the
-stages' times at the SPC cell's K3 inputs, and each stage's delta over the
-one before, are K3's breakdown into slab tests, hit ranks, packing,
-k-buffer append and sort.
+own kernel template (:func:`~kaolin_tpu_torch.probes._kernels.trace_staged`,
+``csrc/spc_trace.cuh``, built in the probes' module), and the question is
+what each part costs: the stages' times at the SPC cell's K3 inputs, and
+each stage's delta over the one before, are K3's breakdown into slab tests,
+hit ranks, packing, k-buffer append and sort.
 
 Inputs in the script's layout: rays (NBS, RT, 8) with columns 0-5 =
 origin and 1 / direction; cells (NBS * CKB, 1, 8, CW) int32 with rows 0-3
@@ -22,9 +22,10 @@ import numpy as np
 import torch
 
 from kaolin_tpu_torch.probes import main, max_abs_err, same_bits, spc_cell
+from kaolin_tpu_torch.probes._kernels import (STAGES, _trace_staged_cuda,
+                                              _trace_staged_torch,
+                                              trace_staged)
 from kaolin_tpu_torch.render.spc import _trace
-from kaolin_tpu_torch.render.spc._trace import (STAGES, _trace_staged_torch,
-                                                trace_staged)
 from kaolin_tpu_torch.render.spc.raster import trace_inputs
 from kaolin_tpu_torch.utils.measure import TRACE, bound_ms, time_ms
 
@@ -223,9 +224,8 @@ def run(device='cuda', spc_args=None, scenes=None):
     bound, by = bound_ms(nbytes, flops)
     stages = {}
     for stage in STAGES:
-        ms = time_ms(lambda: _trace._launch(
-            with_exit=we, out=out, stage=stage, counter=f'stage{stage}',
-            **launch), ITERS)
+        ms = time_ms(lambda: _trace_staged_cuda(
+            stage, with_exit=we, out=out, **launch), ITERS)
         # stages 5 and 6 are two sorts after stage 4's append
         prev = stages[min(stage - 1, 4)]['ms'] if stage > 1 else 0.
         stages[stage] = dict(ms=ms, delta_ms=ms - prev, plain_ms=time_ms(

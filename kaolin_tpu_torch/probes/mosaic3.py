@@ -182,7 +182,7 @@ def host_us(inp, calls=HOST_CALLS):
     from kaolin_tpu_torch import _cuda
     x, nbs = inp['x'], inp['nbs']
     i = x.get_device()
-    ext = _kernels._bind()
+    ext = _cuda.load_module('probes')
     stream = _cuda.stream_getter()
     c_entry = _cuda.load('probes').probe_dyn_loop
     c_entry.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,

@@ -19,8 +19,6 @@ prints the card and one JSON object (~1 min).
 """
 
 import ctypes
-import hashlib
-import subprocess
 from pathlib import Path
 
 import torch
@@ -49,21 +47,10 @@ ITERS = 20
 
 
 def _build():
-    """The designs' library, built with the package's nvcc flags into the
-    build directory, keyed by the source and the headers it includes."""
-    code = SOURCE.read_bytes() + (_cuda.CSRC / 'tma.cuh').read_bytes()
-    tag = hashlib.sha256(code + ' '.join(_cuda.NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    out = _cuda.BUILD_DIR / f'libp2_designs_{tag}.so'
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, '-o',
-                               str(out), str(SOURCE)], capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {SOURCE.name}:\n'
-                               f'{proc.stdout}{proc.stderr}')
-    lib = ctypes.CDLL(str(out))
+    """The designs' library, built by the package's builder with its nvcc
+    flags (keyed by the source and the headers it includes)."""
+    lib = ctypes.CDLL(str(_cuda.build('p2_designs', [SOURCE],
+                                      _cuda.NVCC_FLAGS)))
     lib.p2_design_count.restype = ctypes.c_int
     lib.p2_design_grid.argtypes = [ctypes.c_int, ctypes.c_uint]
     lib.p2_design_grid.restype = ctypes.c_uint

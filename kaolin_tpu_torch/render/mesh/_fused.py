@@ -41,6 +41,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from kaolin_tpu_torch import _cuda
+
 __all__ = ['FusedSelection', 'fused_selection', 'softmask_fused',
            'build_face_tiles', 'LAUNCHES']
 
@@ -375,53 +377,15 @@ def _fused_forward_torch(vt, tile_ranges, chunk_bbox, height, width,
     return _untile(fid_t, height, width), _untile(prod_t, height, width)
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(
-            f'{name}: expected a contiguous {dtype} tensor of shape {shape} '
-            f'on {device}, got {t.dtype} {tuple(t.shape)} on {t.device} '
-            f'(contiguous={t.is_contiguous()})')
-
-
-_ext = _stream = None       # the extension module, the stream getter
-
-
-def _bind():
-    global _ext, _stream
-    if _ext is None:
-        from kaolin_tpu_torch import _cuda
-        _stream = _cuda.stream_getter()
-        _ext = _cuda.load_module('dibr_fused')
-    return _ext
-
-
-def _refused(tests):
-    """Raise for inputs the extension refused: the first of ``tests``
-    ((name, tensor, dtype, shape, device)) that fails :func:`_check`, else
-    the size the kernels index with ints."""
-    for test in tests:
-        _check(*test)
-    raise ValueError('fused kernels index with ints: every input and output '
-                     'must hold fewer than 2^31 elements')
-
-
 def _fused_forward_cuda(vt, tile_ranges, chunk_bbox, height, width,
                         multiplier, eps, sigmainv, with_softmask):
     """Launch the forward kernel; same contract as the plain version."""
     nI, nJ, TW = _tile_dims(*_padded_dims(height, width))
-    out = (_ext or _bind()).forward(
+    out = _cuda.load_module('dibr_fused').forward(
         vt, tile_ranges, chunk_bbox, height, width, nI * nJ, nJ, TW,
         *_pixel_affine(height, width, multiplier), float(eps),
         float(sigmainv) / float(multiplier) ** 2, 4. * float(multiplier) ** 2,
-        int(bool(with_softmask)), _stream(vt.get_device()))
-    if out is None:
-        B, nC = vt.shape[:2]
-        _refused((('vt', vt, torch.float32, (B, nC, FC, _NCOL), vt.device),
-                  ('tile_ranges', tile_ranges, torch.int32, (B, nI * nJ, 2),
-                   vt.device),
-                  ('chunk_bbox', chunk_bbox, torch.float32, (B, nC, 4),
-                   vt.device)))
+        int(bool(with_softmask)), _cuda.stream_getter()(vt.get_device()))
     LAUNCHES['fwd'] += 1
     return out
 
@@ -528,21 +492,12 @@ def _fused_backward_cuda(vt, chunk_tranges, chunk_bbox, g_prod, height,
                          width, multiplier, sigmainv):
     """Launch the backward kernel; same contract as the plain version."""
     nI, nJ, TW = _tile_dims(*_padded_dims(height, width))
-    out = (_ext or _bind()).backward(
+    out = _cuda.load_module('dibr_fused').backward(
         vt, chunk_tranges, chunk_bbox, g_prod, height, width, nI * nJ, nJ, TW,
         _BWD_SLICES, nI * nJ * (TW // _unit_width(TW)),
         *_pixel_affine(height, width, multiplier),
         float(sigmainv) / float(multiplier) ** 2, 4. * float(multiplier) ** 2,
-        _stream(vt.get_device()))
-    if out is None:
-        B, nC = vt.shape[:2]
-        _refused((('vt', vt, torch.float32, (B, nC, FC, _NCOL), vt.device),
-                  ('chunk_tranges', chunk_tranges, torch.int32, (B, nC, 2),
-                   vt.device),
-                  ('chunk_bbox', chunk_bbox, torch.float32, (B, nC, 4),
-                   vt.device),
-                  ('g_prod', g_prod, torch.float32, (B, height, width),
-                   vt.device)))
+        _cuda.stream_getter()(vt.get_device()))
     LAUNCHES['bwd'] += 1
     return out
 

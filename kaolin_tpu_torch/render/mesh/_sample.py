@@ -19,14 +19,15 @@ Beside each kernel is its plain PyTorch version
 wrappers :func:`_bilinear_forward` and :func:`_bilinear_backward` run the
 plain version for tensors on the CPU and the kernel for tensors on a CUDA
 device; there is no fallback between the two.  A kernel is launched
-through the extension module ``csrc/epilogue_module.cpp``.  ``LAUNCHES``
+through the extension module ``csrc/epilogue_module.cpp``, which tests the
+inputs and raises for what the kernels do not take.  ``LAUNCHES``
 counts launches: a wrapper adds one where it launches, and a replayed CUDA
 graph adds what it holds (``models/inverse_render.py::compiled_step``).
 """
 
 import torch
 
-from kaolin_tpu_torch.render.mesh._fused import _check
+from kaolin_tpu_torch import _cuda
 
 __all__ = ['LAUNCHES']
 
@@ -90,41 +91,11 @@ def _bilinear_backward_torch(tex_rows, x, y, g, hw):
     return dt, dx, dy
 
 
-_ext = _stream = None       # the extension module, the stream getter
-
-
-def _bind():
-    global _ext, _stream
-    if _ext is None:
-        from kaolin_tpu_torch import _cuda
-        _stream = _cuda.stream_getter()
-        _ext = _cuda.load_module('epilogue')
-    return _ext
-
-
-def _refused(tex_rows, x, y, hw, g=None):
-    """Raise for inputs the extension refused."""
-    H, W, B, P = hw
-    Q, C = B * P, tex_rows.shape[-1]
-    if min(H, W, P) < 1 or x.dim() != 1 or x.shape[0] != Q:
-        raise ValueError(f'bilinear sample: {tuple(x.shape)} pixel coords '
-                         f'for hw = {hw}')
-    _check('tex_rows', tex_rows, torch.float32, (B * H * W, C), x.device)
-    for name, t in (('x', x), ('y', y)):
-        _check(name, t, torch.float32, (Q,), x.device)
-    if g is not None:
-        _check('g', g, torch.float32, (Q, C), x.device)
-    raise ValueError('bilinear sample kernels index with ints: 4 * B * P '
-                     'and B * P * C must be below 2^31')
-
-
 def _bilinear_forward_cuda(tex_rows, x, y, hw):
     """Launch E1; same contract as the plain version."""
     H, W, _, P = hw
-    out = (_ext or _bind()).sample(tex_rows, x, y, H, W, P,
-                                   _stream(x.get_device()))
-    if out is None:
-        _refused(tex_rows, x, y, hw)
+    out = _cuda.load_module('epilogue').sample(
+        tex_rows, x, y, H, W, P, _cuda.stream_getter()(x.get_device()))
     LAUNCHES['sample'] += 1
     return out
 
@@ -132,10 +103,8 @@ def _bilinear_forward_cuda(tex_rows, x, y, hw):
 def _bilinear_backward_cuda(tex_rows, x, y, g, hw):
     """Launch E2; same contract as the plain version."""
     H, W, _, P = hw
-    out = (_ext or _bind()).sample_backward(tex_rows, x, y, g, H, W, P,
-                                            _stream(x.get_device()))
-    if out is None:
-        _refused(tex_rows, x, y, hw, g)
+    out = _cuda.load_module('epilogue').sample_backward(
+        tex_rows, x, y, g, H, W, P, _cuda.stream_getter()(x.get_device()))
     LAUNCHES['sample_bwd'] += 1
     return out
 

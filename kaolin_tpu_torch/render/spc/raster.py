@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from kaolin_tpu_torch import _cuda
 from kaolin_tpu_torch._device import entry_device
 from kaolin_tpu_torch.render.spc import _trace
 from kaolin_tpu_torch.render.spc.raytrace import (inverse_direction,
@@ -300,32 +301,6 @@ def _cull_candidates_torch(blo, bhi, o, d, cs, ck_max):
     return n_b, blk_ids.to(torch.int32), sat
 
 
-_ext = _stream = None       # the extension module, the stream getter
-
-
-def _bind():
-    global _ext, _stream
-    if _ext is None:
-        from kaolin_tpu_torch import _cuda
-        _stream = _cuda.stream_getter()
-        _ext = _cuda.load_module('spc_cull')
-    return _ext
-
-
-def _cull_refused(blo, bhi, o, d):
-    """Raise for inputs the extension refused: the first that fails
-    ``_trace._check``, else the sizes the kernel takes."""
-    nB, rt = o.shape[:2]
-    _trace._check('blo', blo, torch.float32, (blo.shape[0], 3), o.device)
-    _trace._check('bhi', bhi, torch.float32, tuple(blo.shape), o.device)
-    _trace._check('o', o, torch.float32, (nB, rt, 3), o.device)
-    _trace._check('d', d, torch.float32, (nB, rt, 3), o.device)
-    raise ValueError('spc_cull_kernel takes cs, ck_max >= 0 and indexes with '
-                     'ints: blk_ids and the super-tiles\' lists must hold '
-                     'fewer than 2^31 elements, and the cell table at least '
-                     'its dump row')
-
-
 def _cull_candidates_cuda(blo, bhi, o, d, cs, ck_max):
     """Launch ``spc_cull_kernel`` (``csrc/spc_cull.cu``) and add one to
     ``LAUNCHES['cull']``; same contract as the plain version."""
@@ -335,10 +310,9 @@ def _cull_candidates_cuda(blo, bhi, o, d, cs, ck_max):
             f'spc_cull_kernel (one ray per lane, 64 blocks a super-tile) '
             f'takes 1 <= rays_per_tile <= {_trace._MAX_RT} and a whole '
             f'number of super-tiles; got rays_per_tile={rt}, {nB} blocks')
-    out = (_ext or _bind()).cull(blo, bhi, o, d, int(cs), int(ck_max),
-                                 _stream(o.get_device()))
-    if out is None:
-        _cull_refused(blo, bhi, o, d)
+    out = _cuda.load_module('spc_cull').cull(
+        blo, bhi, o, d, int(cs), int(ck_max),
+        _cuda.stream_getter()(o.get_device()))
     if nB:
         LAUNCHES['cull'] += 1
     return out

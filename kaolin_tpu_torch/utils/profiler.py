@@ -31,6 +31,7 @@ import time
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from kaolin_tpu_torch import _cuda
 from kaolin_tpu_torch._device import entry_device
 
 __all__ = ['Timer', 'benchmark', 'trace', 'span', 'SPANS']
@@ -200,18 +201,19 @@ class _Span:
         if self._host is not None:
             self._host.__enter__()
         if self._mark is not None:
-            _marks.mark(self._mark, 0, _stream(self._index))
+            _cuda.load_module('spans').mark(
+                self._mark, 0, _cuda.stream_getter()(self._index))
         return self
 
     def __exit__(self, *exc):
         if self._mark is not None:
-            _marks.mark(self._mark, 1, _stream(self._index))
+            _cuda.load_module('spans').mark(
+                self._mark, 1, _cuda.stream_getter()(self._index))
         if self._host is not None:
             self._host.__exit__(*exc)
         return False
 
 
-_marks = _stream = None     # the extension module, the stream getter
 _loaded = set()             # the CUDA devices whose marks are loaded
 
 
@@ -224,11 +226,7 @@ def _load_marks(index):
     """Build (once a checkout) and load the mark kernels on the CUDA
     device ``index``: a lazily loaded module would otherwise be loaded at
     its first launch, which may fall in a capture."""
-    global _marks, _stream
-    if _marks is None:
-        from kaolin_tpu_torch import _cuda
-        _stream = _cuda.stream_getter()
-        _marks = _cuda.load_module('spans')
+    marks = _cuda.load_module('spans')
     with torch.cuda.device(index):
-        _marks.load()
+        marks.load()
     _loaded.add(index)

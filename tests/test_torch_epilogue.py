@@ -421,3 +421,25 @@ def test_cuda_wrappers_refuse_other_inputs():
     idx = torch.zeros(10, dtype=torch.int32, device='cuda')
     with pytest.raises(ValueError, match='g:.*torch.float64'):
         _scatter._scatter_rows_cuda(g.double(), idx, 4)
+
+
+@cuda
+@pytest.mark.parametrize('entry,named', [('sample', 'C = 0'),
+                                         ('sample_backward', 'C = 0'),
+                                         ('scatter_rows', 'N = -1')])
+def test_cuda_entries_name_what_they_refuse(entry, named):
+    """An input that only the C++ entry tests (a texture of no channels
+    for E1 and E2, a negative row count for E3) raises ValueError naming
+    it, not the 2^31 limit."""
+    tex, x, y, g = _card_sample(1, 4, 4, 10, 3, seed=0)
+    hw = (4, 4, 1, 10)
+    tex0, g0 = tex[:, :0].contiguous(), g[:, :0].contiguous()
+    with pytest.raises(ValueError, match=named) as refused:
+        if entry == 'sample':
+            _sample._bilinear_forward_cuda(tex0, x, y, hw)
+        elif entry == 'sample_backward':
+            _sample._bilinear_backward_cuda(tex0, x, y, g0, hw)
+        else:
+            _scatter._scatter_rows_cuda(
+                g, torch.zeros(10, dtype=torch.int32, device='cuda'), -1)
+    assert '2^31' not in str(refused.value)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from kaolin_tpu_torch import _cuda
 from kaolin_tpu_torch.render.mesh import _fused as FT
 from kaolin_tpu_torch.utils.testing import (EDGE_SCENES, dibr_edge_scene,
                                             random_triangles)
@@ -164,6 +165,28 @@ def test_cuda_wrapper_checks_inputs():
         FT._fused_backward(vt, ctr, cbb, torch.zeros((1, 32, 33),
                                                      device='cuda'),
                            32, 32, MULT, 7000.)
+
+
+@cuda
+@pytest.mark.parametrize('entry,named', [('forward', 'height'),
+                                         ('backward', 'S = 0')])
+def test_cuda_entry_names_what_it_refuses(entry, named):
+    """An input that only the C++ entry tests (a negative height for K1, no
+    slice for K2) raises ValueError naming it, not the 2^31 limit."""
+    fvz, fvi = random_scene(0, B=1, device='cuda')
+    vt, tr, ctr, cbb = _tiles(fvz, fvi, 32, 32)
+    nI, nJ, TW = FT._tile_dims(*FT._padded_dims(32, 32))
+    aff = FT._pixel_affine(32, 32, MULT)
+    ext, stream = _cuda.load_module('dibr_fused'), _cuda.stream_getter()(0)
+    g = torch.zeros((1, 32, 32), device='cuda')
+    with pytest.raises(ValueError, match=named) as refused:
+        if entry == 'forward':
+            ext.forward(vt, tr, cbb, -32, 32, nI * nJ, nJ, TW, *aff, 1e-8,
+                        1., 4., 1, stream)
+        else:
+            ext.backward(vt, ctr, cbb, g, 32, 32, nI * nJ, nJ, TW, 0,
+                         nI * nJ, *aff, 1., 4., stream)
+    assert '2^31' not in str(refused.value)
 
 
 def _edge_tiles(name):

@@ -1,5 +1,6 @@
-"""The probe kernels (P1, P2: ``csrc/probes.cu``; P3: the stages of K3 in
-``csrc/spc_trace.cu``) against their plain PyTorch versions.
+"""The probe kernels (P1, P2: ``csrc/probes.cu``; P3: the stages of K3's
+template ``csrc/spc_trace.cuh``, built there too) against their plain
+PyTorch versions.
 
 This file imports no JAX, so it also runs where only PyTorch is installed
 (on the card: ``python -m pytest --noconftest
@@ -56,8 +57,8 @@ def test_staged_plain_versions(with_exit):
     hits."""
     args = scene(5, 60000, 5, 'diagonal', 16, 64, zero_nb=True)
     k3 = _trace._trace_torch(with_exit=with_exit, **args)
-    out = {s: _trace.trace_staged(s, with_exit=with_exit, **args)
-           for s in _trace.STAGES}
+    out = {s: _kernels.trace_staged(s, with_exit=with_exit, **args)
+           for s in _kernels.STAGES}
     _assert_same(out[6], k3)
     _assert_same(out[5], k3)
     defaults = _trace._outputs(args['num_blocks'], args['rays'].shape[1],
@@ -71,20 +72,20 @@ def test_staged_plain_versions(with_exit):
     _assert_same(out[3][1:], defaults[1:3] + (k3[3],))
     assert int(k3[3].max()) > args['kbuf']
     with pytest.raises(ValueError, match='stage'):
-        _trace.trace_staged(7, with_exit=with_exit, **args)
+        _kernels.trace_staged(7, with_exit=with_exit, **args)
 
 
 @cuda
 @pytest.mark.parametrize('case', CASES)
 @pytest.mark.parametrize('with_exit', [True, False])
-@pytest.mark.parametrize('stage', _trace.STAGES)
+@pytest.mark.parametrize('stage', _kernels.STAGES)
 def test_cuda_trace_stage_matches_plain(case, with_exit, stage):
     args = scene(*case, device='cuda', zero_nb=True)
-    n0 = _trace.LAUNCHES[f'stage{stage}']
-    out_k = _trace.trace_staged(stage, with_exit=with_exit, **args)
+    n0 = _kernels.LAUNCHES[f'stage{stage}']
+    out_k = _kernels.trace_staged(stage, with_exit=with_exit, **args)
     torch.cuda.synchronize()
-    assert _trace.LAUNCHES[f'stage{stage}'] == n0 + 1
-    out_p = _trace._trace_staged_torch(stage, with_exit=with_exit, **args)
+    assert _kernels.LAUNCHES[f'stage{stage}'] == n0 + 1
+    out_p = _kernels._trace_staged_torch(stage, with_exit=with_exit, **args)
     _assert_same(out_k, out_p)
     if stage == 6:
         _assert_same(out_k, _trace.trace(with_exit=with_exit, **args))
@@ -262,6 +263,27 @@ def test_cuda_probe_wrappers_check_inputs():
         _kernels.kD(inp['nbs'][:, :0].contiguous(), inp['ids'],
                     inp['table'], inp['x'])
     wide = torch.ones((mosaic3.NB, 1, 4100), device='cuda')
-    with pytest.raises(RuntimeError, match='row_sum'):  # > MAXV x THREADS
+    with pytest.raises(RuntimeError, match='row_sum'):  # > MAXV x CTA_THREADS
         _kernels.kB(inp['ids'], torch.ones((mosaic3.M, 1, 4100),
                                            device='cuda'), wide)
+
+
+@cuda
+@pytest.mark.parametrize('entry,named', [('row_sum', 'ids must be'),
+                                         ('trace_stage', 'stage must be')])
+def test_cuda_entries_name_what_they_refuse(entry, named):
+    """An input that only the C++ entry tests (a bag of ids not (nb, 1, CK)
+    for kB, a stage past K3's for P3) raises ValueError naming it, not the
+    2^31 limit."""
+    inp = mosaic3.inputs('cuda')
+    with pytest.raises(ValueError, match=named) as refused:
+        if entry == 'row_sum':
+            ids = inp['ids']
+            _kernels.kB(torch.cat([ids, ids], 1), inp['table'], inp['x'])
+        else:
+            args = scene(*CASES[0], device='cuda')
+            out = _trace._outputs(args.pop('num_blocks'),
+                                  args['rays'].shape[1], args['kbuf'],
+                                  'cuda')
+            _kernels._trace_staged_cuda(7, with_exit=True, out=out, **args)
+    assert '2^31' not in str(refused.value)

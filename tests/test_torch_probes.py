@@ -31,8 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+from kaolin_tpu_torch import _cuda
 from kaolin_tpu_torch.probes import _kernels, kbisect, mosaic3, stages
-from kaolin_tpu_torch.render.spc._trace import STAGES, trace_staged
+from kaolin_tpu_torch.probes._kernels import STAGES, trace_staged
 from kaolin_tpu_torch.utils import measure
 
 SCRIPTS = Path(__file__).resolve().parents[1] / 'scripts'
@@ -177,12 +178,11 @@ def test_kc_plain_route_matches_kb_and_script(scripts, table_kind):
 def test_ring_constants_match_source():
     """kB's ring and P2's tile as the probes report them (``_kernels``)
     are the constants ``csrc/probes.cu`` is built with."""
-    from kaolin_tpu_torch import _cuda
     src = (_cuda.CSRC / 'probes.cu').read_text()
     for name in ('KB_SLOTS', 'KB_BARRIERS'):
         assert f'constexpr int {name} = {getattr(_kernels, name)};' in src
-    assert 'constexpr int THREADS = 256;' in src
-    assert 'constexpr int P2_TILE4 = THREADS;' in src
+    assert 'constexpr int CTA_THREADS = 256;' in src
+    assert 'constexpr int P2_TILE4 = CTA_THREADS;' in src
     assert _kernels.P2_TILE_BYTES == 256 * 16
     assert '#include "tma.cuh"' in src
     assert 'row_sum_kernel' not in src and 'cp.async.cg' not in src
@@ -235,17 +235,11 @@ def _wrapper_args(name):
 def test_probe_wrappers_on_cpu_run_plain(monkeypatch, name):
     """A wrapper given CPU tensors runs its plain version and launches
     nothing: no C function is bound or called, no launch is counted."""
-    class NoLaunch:
-        def __getattr__(self, entry):
-            raise AssertionError('a probe kernel was launched for CPU '
-                                 'tensors')
-
-    def no_bind():
+    def no_load(module):
         raise AssertionError('the probe kernels were built or loaded for '
                              'CPU tensors')
 
-    monkeypatch.setattr(_kernels, '_ext', NoLaunch())
-    monkeypatch.setattr(_kernels, '_bind', no_bind)
+    monkeypatch.setattr(_cuda, 'load_module', no_load)
     args = _wrapper_args(name)
     before = dict(_kernels.LAUNCHES)
     out = getattr(_kernels, name)(*args)

@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from kaolin_tpu_torch import _cuda
 from kaolin_tpu_torch.ops.spc import (generate_points, scan_octrees,
                                       unbatched_points_to_octree)
+from kaolin_tpu_torch.probes import _kernels
 from kaolin_tpu_torch.render.spc import _trace, raster
 from kaolin_tpu_torch.render.spc.raster import build_cell_table, trace_inputs
 from kaolin_tpu_torch.utils.testing import camera_grid, punch_cell_rows
@@ -164,14 +166,14 @@ def test_plain_version_matches_brute_force_with_holes(case, with_exit):
 
 
 @pytest.mark.parametrize('with_exit', [True, False])
-@pytest.mark.parametrize('stage', _trace.STAGES)
+@pytest.mark.parametrize('stage', _kernels.STAGES)
 def test_plain_pidx_offset(stage, with_exit):
     """``pidx_offset`` moves every live pidx and nothing else: the offset
     result equals where(pidx >= 0, pidx + offset, -1) of the offset-0
     result, t_near, t_far and count bit for bit, at every stage."""
     args = scene(*CASES[4], zero_nb=True)
-    base = _trace.trace_staged(stage, with_exit=with_exit, **args)
-    moved = _trace.trace_staged(stage, with_exit=with_exit,
+    base = _kernels.trace_staged(stage, with_exit=with_exit, **args)
+    moved = _kernels.trace_staged(stage, with_exit=with_exit,
                                 pidx_offset=OFFSET, **args)
     want = torch.where(base[2] >= 0, base[2] + OFFSET, -1)
     _assert_same(moved, (base[0], base[1], want, base[3]))
@@ -184,7 +186,7 @@ def test_plain_pidx_offset(stage, with_exit):
 def test_wrapper_mirrors_the_kernel_shape():
     """The wrapper's copy of the kernel's shape and of its shared-memory
     formula equals what the source compiles."""
-    src = (Path(_trace.__file__).parents[2] / 'csrc' / 'spc_trace.cu'
+    src = (Path(_trace.__file__).parents[2] / 'csrc' / 'spc_trace.cuh'
            ).read_text()
 
     def const(name):
@@ -290,6 +292,25 @@ def test_cuda_wrapper_checks_inputs():
         _trace.trace(with_exit=True, **dict(
             args, rays=rays64, block_cells=args['block_cells'][:1],
             nb=args['nb'][:1], block_ids=args['block_ids'][:1]))
+
+
+@cuda
+@pytest.mark.parametrize('entry,named', [('trace', 'cell_rows'),
+                                         ('cull', 'cs = -1')])
+def test_cuda_entries_name_what_they_refuse(entry, named):
+    """An input that only the C++ entry tests (cell rows without their
+    4 x cw layout for K3, a negative super-tile cap for the culling) raises
+    ValueError naming it, not the 2^31 limit."""
+    args = scene(*CASES[0], device='cuda')
+    table = sphere_table(6, 2, 'cuda')
+    o = torch.zeros((64, 16, 3), device='cuda')
+    with pytest.raises(ValueError, match=named) as refused:
+        if entry == 'trace':
+            _trace.trace(with_exit=True, **dict(
+                args, cell_rows=args['cell_rows'][:, 0].contiguous()))
+        else:
+            raster._cull_candidates(table.blo, table.bhi, o, o, -1, 64)
+    assert '2^31' not in str(refused.value)
 
 
 # ---------------------------------------------------------------------------
@@ -544,11 +565,10 @@ def test_cull_wrapper_refuses_a_shape_before_it_launches(rt, nB,
     """More rays per block than a warp has lanes, or blocks that do not
     make whole super-tiles, raise in the wrapper: no library is loaded and
     nothing is counted."""
-    def load():
+    def load(name):
         raise AssertionError('the library was loaded')
 
-    monkeypatch.setattr(raster, '_ext', None)
-    monkeypatch.setattr(raster, '_bind', load)
+    monkeypatch.setattr(_cuda, 'load_module', load)
     table = sphere_table(4, 1)
     o = torch.zeros((nB, rt, 3))
     n0 = raster.LAUNCHES['cull']
