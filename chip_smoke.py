@@ -19,19 +19,26 @@ SH-lit render -> image L1 + mask IoU loss -> backward -> Adam) at 512^2,
    sub-tiles with a non-zero g*prod), counted in torch from their rules;
    the epilogue's kernels E1-E3 (``csrc/epilogue.cu``: the bilinear
    texture sample, its backward, the face-row scatter of ``gather_rows``'
-   backward) on one eager step's own inputs against their plain versions,
-   each run again for the same bits, two steps' gradients compared bit for
-   bit, their times by both timers in turns with ``grid_sample``,
-   ``grid_sampler_2d_backward`` and ``index_add_``, and their bounds;
+   backward) on one eager step's own inputs (E1's those of
+   ``render_views``: the step's albedo is the shading kernel's) against
+   their plain versions, each run again for the same bits, two steps'
+   gradients compared bit for bit, their times by both timers in turns with
+   ``grid_sample``, ``grid_sampler_2d_backward`` and ``index_add_``, and
+   their bounds; the shading (``render/mesh/_shade.py``: the per-pixel
+   chain from the face rows to the L1 + IoU loss terms and its backward,
+   ``csrc/shade.cuh``) against its plain version on the cell's start point
+   (loss terms, the gradients to the corners, normals, texture, SH and soft
+   mask), run again for the same bits, its kernels' device times beside
+   their bounds and the plain version's;
 4. 5 Adam steps of the compiled step (``models.inverse_render.
-   compiled_step``: one CUDA graph replayed a step, K1, K2 and E1-E3 in
-   it) against 5 eager steps from the same parameters (the first replay's
-   face ids, soft-mask product, loss and gradients bit for bit, every loss
-   within step 0's limit; the 'jnp' backend's gradients within 1e-5 of
-   their largest), K1, K2 and
-   E1-E3 as captured held against their plain versions on the graph's
-   inputs, one launch of each counted per replay; then step 0's loss and
-   gradients at
+   compiled_step``: one CUDA graph replayed a step, K1, K2, E2, E3 and the
+   shading in it) against 5 eager steps from the same parameters (the
+   first replay's face ids, soft-mask product, loss and gradients bit for
+   bit, every loss within step 0's limit; the 'jnp' backend's gradients
+   within 1e-5 of their largest), K1, K2, E2 and E3 as captured held
+   against their plain versions on the graph's inputs, one launch of each
+   and of the shading's two counted per replay, none of E1; then step 0's
+   loss and gradients at
    128^2 and one view on the card against the same step on the CPU, where
    the wrappers run the plain versions (phases 2-3 hold the kernels
    against their plain versions at full size);
@@ -259,10 +266,10 @@ Each phase prints its seconds, and the script its total.
 Every kernel of the ``kernels`` line carries its time, its plain
 version's, its bound (the larger of bytes over 3.35 TB/s and float32
 operations over 67 TFLOP/s, counted on this run's inputs) and, where one
-PyTorch call computes the same function, that call's time.  E1-E3's
-launches are counted on every path that renders through ``rasterize``'s
-epilogue and ``texture_mapping``: the DIB-R step, config #1 and paths F,
-G (the fit and the examples) and H.
+PyTorch call computes the same function, that call's time.  E1-E3's and
+the shading's launches are counted on every path that renders through
+``rasterize``'s epilogue and ``texture_mapping`` or ``render_loss``: the
+DIB-R step, config #1 and paths F, G (the fit and the examples) and H.
 
 Every phase synchronises and raises on failure; there is no CPU path.
 Usage: ``python3 chip_smoke.py`` from the root of the repository.  The last
@@ -309,6 +316,7 @@ from kaolin_tpu_torch.render.camera import Camera
 from kaolin_tpu_torch.ops import _scatter as SC
 from kaolin_tpu_torch.render.mesh import _fused as FU
 from kaolin_tpu_torch.render.mesh import _sample as SA
+from kaolin_tpu_torch.render.mesh import _shade as SH
 from kaolin_tpu_torch.render.mesh import (deftet_sparse_render,
                                           dibr_soft_mask,
                                           dibr_soft_mask_select,
@@ -397,6 +405,11 @@ REPLAY_GRAD_REL = dict(fused=0., jnp=1e-5)
 # ops in the same order; E2's texel sums and E3's row sums in another order
 E1_MAX = 1e-6               # max |sample - plain| (texels in [0, 1))
 E_REL_MAX = 1e-5            # max |d| / max |plain| of E2's dT, dx, dy, E3
+# the shading (render/mesh/_shade.py) against its plain version (same
+# inputs, same card): the loss terms' sums over the pixels and every
+# gradient's sum over the pixels are taken in another order
+SHADE_LOSS_RTOL = 1e-5
+SHADE_GRAD_REL = 1e-4
 # a step's parts, timed by contiguous CUDA events inside it, against the
 # step: only the float rounding of elapsed_time lies between them
 PARTS_RTOL, PARTS_ATOL_MS = 0.01, 0.01
@@ -731,9 +744,11 @@ def culling(scene, inputs, g_prod):
 
 
 def check_epilogue(scene, card):
-    """Phase 3, continued: E1-E3 on the DIB-R cell's own inputs, those of
-    one eager step from the start point (kept by :func:`kept_launches`):
-    each against its plain version, each run twice more for the same bits,
+    """Phase 3, continued: E1-E3 on the DIB-R cell's own inputs, E2's and
+    E3's those of one eager step from the start point and E1's those of
+    ``render_views`` there (the step's albedo is the shading kernel's, from
+    E1's taps; kept by :func:`kept_launches`): each against its plain
+    version, each run twice more for the same bits,
     and two whole eager steps' gradients compared bit for bit; their times
     by both timers (``time_ms``, ``measure.device_ms``) in turns with one
     PyTorch call of the same function (``grid_sample``,
@@ -743,9 +758,13 @@ def check_epilogue(scene, card):
     kernel's bound on these inputs.  These launches are not path
     launches."""
     twin = _twin(scene['params'])
-    saved = read_launches(tuple(HELD))
+    saved = read_launches(tuple(COUNTS))
+    H = scene['height']
     with kept_launches() as kept:
-        _step(scene, twin)
+        _, sel = _step(scene, twin)
+        with torch.no_grad():
+            M.render_views(twin, scene['views'], scene['faces'],
+                           scene['face_uvs'], H, H, selection=sel)
         torch.cuda.synchronize()
     grads = [p.grad.clone() for p in twin.parameters()]
     _step(scene, twin)
@@ -753,7 +772,8 @@ def check_epilogue(scene, card):
                     for a, p in zip(grads, twin.parameters()))
     held, err = hold_against_plain(kept, 'E1-E3 on the DIB-R cell')
     _check(all(held[k] == 1 for k in EPILOGUE),
-           'one launch of each of E1-E3 in the DIB-R step')
+           'one launch of each of E2, E3 in the DIB-R step and of E1 in '
+           'render_views')
     args = {k: kept[k][0][0] for k in EPILOGUE}
     outs = {k: kept[k][0][2] for k in EPILOGUE}
     kern = {k: (lambda k=k: getattr(*HELD[k][:2])(*args[k]))
@@ -768,6 +788,9 @@ def check_epilogue(scene, card):
     tex_rows, x, y, hw = args['sample']
     TH, TW, B, P = hw
     Q, R, C = x.shape[0], tex_rows.shape[0], tex_rows.shape[1]
+    # E2 in the step: every view's pixels as one batch of the one texture
+    R2, x2, y2 = (args['sample_bwd'][0].shape[0], args['sample_bwd'][1],
+                  args['sample_bwd'][2])
     g = args['sample_bwd'][3]
     gs, idx, N = args['scatter']
     D = gs.shape[1]
@@ -784,7 +807,7 @@ def check_epilogue(scene, card):
            .index_add_(0, idx, gs)}
     lib_out = lib['sample']()[:, :, 0].permute(0, 2, 1).reshape(Q, C)
     lib_err = (lib_out - outs['sample']).abs().max().item()
-    keys = torch.cat(SA._flat_corner_idx(x, y, TH, TW, B, P)[0])
+    keys = torch.cat(SA._flat_corner_idx(x2, y2, TH, TW, 1, Q)[0])
     sort_ms = {
         'sample_bwd': measure.device_ms(lambda: torch.sort(keys, stable=True),
                                         20),
@@ -794,7 +817,7 @@ def check_epilogue(scene, card):
         (N, D), device=gs.device).index_put_((idx.long(),), gs,
                                              accumulate=True), 3)
     nbytes = {'sample': 4 * (R * C + 2 * Q + Q * C),
-              'sample_bwd': 4 * (2 * R * C + 4 * Q + Q * C),
+              'sample_bwd': 4 * (2 * R2 * C + 4 * Q + Q * C),
               'scatter': 4 * (gs.numel() + idx.numel() + N * D)}
     flops = {'sample': E1_FLOPS * Q * C, 'sample_bwd': E2_FLOPS * Q * C,
              'scatter': E3_FLOPS * gs.numel()}
@@ -812,8 +835,9 @@ def check_epilogue(scene, card):
                        **_bound(nbytes[k], flops[k]))
     for k, v in saved.items():
         COUNTS[k][k] = v
-    print(f'E1-E3 on the DIB-R cell\'s step: textures (B*H*W, C) = ({R}, '
-          f'{C}), {Q} pixels, face table ({N}, {D}); the longest run of one '
+    print(f'E1-E3 on the DIB-R cell\'s step (E1 render_views\'): textures '
+          f'(B*H*W, C) = ({R}, {C}) for E1, ({R2}, {C}) for E2, {Q} pixels, '
+          f'face table ({N}, {D}); the longest run of one '
           f'id: {runs["sample_bwd"]} of the {4 * Q} texel taps, '
           f'{runs["scatter"]} of the {idx.numel()} face rows; against '
           f'plain: max abs err {err}; E1-E3 run twice more on the same '
@@ -844,6 +868,140 @@ def check_epilogue(scene, card):
         rows[k]['sort_device_ms'] = sort_ms[k]
     rows['scatter']['index_put_device_ms'] = put_ms
     return rows, step_bits
+
+
+def _shade_leaves(scene):
+    """The shading's inputs on ``scene``'s start point, its differentiable
+    ones as leaves: (face ids, corners, normals, face uvs, texture, SH, soft
+    mask, target images, target masks)."""
+    params, H = scene['params'], scene['height']
+    sel = M.compute_selection(params, scene['views'], scene['faces'], H, H)
+    with torch.no_grad():
+        _, fvi, fn = M._prepare(params, scene['views'], scene['faces'])
+        soft = M._soft_mask(fvi, sel, True, M._SIGMAINV, scene['knum'])
+    leaf = [t.detach().clone().requires_grad_() for t in (
+        fvi, fn, params.texture_map, params.sh_coeffs, soft)]
+    return (sel[0], leaf[0], leaf[1], scene['face_uvs'], leaf[2], leaf[3],
+            leaf[4], scene['target_images'], scene['target_masks'])
+
+
+def _shade_run(fn, args):
+    """The loss terms of ``fn`` (the shading or its plain version) on
+    ``args`` and the gradients of their sum to the leaves."""
+    leaves = [a for a in args if torch.is_tensor(a) and a.requires_grad]
+    for t in leaves:
+        t.grad = None
+    terms = fn(*args)
+    (terms[0] + terms[1]).backward()
+    return [t.detach() for t in terms], [t.grad.clone() for t in leaves]
+
+
+def _per_pixel_cats(scene):
+    """The ``cat`` and ``stack`` calls of one eager step, forward and
+    backward, with an input of a value a pixel or more (B * H * W): (op,
+    input shapes) each (the parent's step stacked the SH bands and the
+    barycentric weights)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    pixels = scene['views'].camera_rot.shape[0] * scene['height'] ** 2
+    ops = (torch.ops.aten.cat.default, torch.ops.aten.stack.default)
+
+    class Cats(TorchDispatchMode):
+        seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in ops and any(t.numel() >= pixels for t in args[0]):
+                self.seen.append((str(func),
+                                  [tuple(t.shape) for t in args[0]]))
+            return func(*args, **(kwargs or {}))
+    twin = _twin(scene['params'])
+    with Cats() as mode:
+        _step(scene, twin)
+    return mode.seen
+
+
+def check_shade(scene, card):
+    """Phase 3, continued: the shading (``render/mesh/_shade.py``, the
+    kernels of ``csrc/shade.cuh``) against its plain version, the PyTorch
+    composition (with E1-E3), on the DIB-R cell's start point: the loss
+    terms within SHADE_LOSS_RTOL, the gradients to the corners, the
+    normals, the texture, the SH and the soft mask within SHADE_GRAD_REL of
+    their largest; the kernels run again for the same bits; each kernel's
+    device time beside its bound and the plain version's, and the whole
+    Function's forward and backward (with E2 and E3) beside the plain
+    composition's; no ``cat`` or ``stack`` over per-pixel data left in the
+    step.  These launches are not path launches."""
+    saved = read_launches(tuple(COUNTS))
+    args = _shade_leaves(scene)
+    names = ('corners', 'normals', 'texture', 'sh', 'soft mask')
+    terms_k, grads_k = _shade_run(SH.shade_loss, args)
+    terms_p, grads_p = _shade_run(SH._shade_loss_torch, args)
+    again = _shade_run(SH.shade_loss, args)
+    same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(
+        terms_k + grads_k, again[0] + again[1]))
+    rel = [abs(a.item() - b.item()) / abs(b.item())
+           for a, b in zip(terms_k, terms_p)]
+    g_rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+             for a, b in zip(grads_k, grads_p)]
+    print(f'the shading against plain on the DIB-R cell\'s start point: loss '
+          f'terms (image, mask) {[t.item() for t in terms_k]} against '
+          f'{[t.item() for t in terms_p]} (rel {rel[0]:.2e}, {rel[1]:.2e}, '
+          f'limit {SHADE_LOSS_RTOL:g}); gradients max|d| / max|g| '
+          + ', '.join(f'{n} {x:.2e}' for n, x in zip(names, g_rel))
+          + f' (limit {SHADE_GRAD_REL:g}); run again, the same bits: {same}')
+    _check(all(r <= SHADE_LOSS_RTOL for r in rel), 'shading loss terms '
+           'against plain')
+    _check(all(x <= SHADE_GRAD_REL for x in g_rel), 'shading gradients '
+           'against plain')
+    _check(same, 'the shading gives the same bits on every run')
+
+    fid, fvi, fn, uvs, tex, sh, soft, timg, tmask = args
+    hw = tuple(tex.shape[1:])
+    tex_rows = tex.detach().permute(1, 2, 0).reshape(-1, 3).contiguous()
+    inputs = (fid, fvi.detach(), fn.detach(), uvs, tex_rows, sh.detach(),
+              soft.detach(), timg, tmask)
+    _, _, iou = SH._shade_forward_cuda(inputs, hw)
+    one = torch.ones((), device=fid.device)
+    fwd_ms = measure.device_ms(lambda: SH._shade_forward_cuda(inputs, hw),
+                               20)
+    bwd_ms = measure.device_ms(lambda: SH._shade_backward_cuda(
+        inputs, iou, one, one, hw), 20)
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: SH._shade_loss_torch(*args), 5)
+    whole_ms, plain_ms = measure.in_turns(
+        time_ms, lambda: _shade_run(SH.shade_loss, args),
+        lambda: _shade_run(SH._shade_loss_torch, args), 5)
+    Q, B, F = fid.numel(), fid.shape[0], fvi.shape[1]
+    tables = 4 * (B * F * 9 + F * 6 + tex_rows.numel() + 9)
+    reads = 4 * Q * (1 + 1 + 3 + 1) + tables   # ids, soft, targets
+    nbytes = {'shade': reads + 4 * (B * 2 + 2),
+              'shade_bwd': reads + 4 * B * 2 + 4 * Q * (3 + 2 + 9 + 1 + 1)}
+    rows = {'shade': dict(ms=fwd_ms, plain_ms=plain_fwd_ms,
+                          **_bound(nbytes['shade'], 0)),
+            'shade_bwd': dict(ms=bwd_ms, plain_ms=plain_ms - plain_fwd_ms,
+                              **_bound(nbytes['shade_bwd'], 0))}
+    for k, r in rows.items():
+        r['max_abs_err'] = max((a - b).abs().max().item()
+                               for a, b in zip(grads_k, grads_p)) \
+            if k == 'shade_bwd' else max(abs(a.item() - b.item())
+                                         for a, b in zip(terms_k, terms_p))
+    cats = _per_pixel_cats(scene)
+    print(f'cat / stack calls over per-pixel data in one eager step: '
+          f'{cats or "none"}')
+    _check(not cats, 'no cat or stack over per-pixel data in the step')
+    for k, v in saved.items():
+        COUNTS[k][k] = v
+    print(f'[{card}] shade_forward_kernel + shade_loss_kernel '
+          f'{fwd_ms:.4f} ms on the device, bound '
+          f'{rows["shade"]["bound_ms"]:.4f} ms ({nbytes["shade"]} bytes); '
+          f'the plain forward {plain_fwd_ms:.4f} ms')
+    print(f'[{card}] shade_backward_kernel + shade_sh_kernel {bwd_ms:.4f} ms '
+          f'on the device, bound {rows["shade_bwd"]["bound_ms"]:.4f} ms '
+          f'({nbytes["shade_bwd"]} bytes); the plain backward '
+          f'{plain_ms - plain_fwd_ms:.4f} ms')
+    print(f'[{card}] the shading\'s forward and backward with E2 and E3 '
+          f'{whole_ms:.4f} ms, the plain composition\'s {plain_ms:.4f} ms '
+          f'(in turns, CUDA events)')
+    return rows
 
 
 def _step(scene, params, selection=None):
@@ -943,11 +1101,13 @@ def train(scene, steps=STEPS):
     same parameters: step 0's face ids, soft-mask selection and loss bit
     for bit and its gradients within REPLAY_GRAD_REL (by backend) of their
     largest; every step's loss within step 0's card-vs-CPU limit (later
-    steps' gradients are printed); K1, K2 and E1-E3 as launched inside the
-    graph against their plain versions on the graph's own inputs.  Returns
-    (the kernels' launches over the replays, the losses, the compiled step,
-    the peak memory of its build and replays, E1-E3's max abs errors
-    inside the graph)."""
+    steps' gradients are printed); K1, K2, E2 and E3 as launched inside the
+    graph against their plain versions on the graph's own inputs (E1 is
+    not launched: the shading's kernel takes its taps; the shading is held
+    against its plain version by :func:`check_shade`).  Returns (the
+    kernels' launches over the replays, the losses, the compiled step, the
+    peak memory of its build and replays, E1-E3's max abs errors inside
+    the graph)."""
     params = scene['params']
     start = {n: p.detach().clone() for n, p in params.named_parameters()}
     twin, eager = _twin(params), []
@@ -1011,19 +1171,20 @@ def train(scene, steps=STEPS):
     _check(all(x <= REPLAY_GRAD_REL[scene['backend']] for x in g_rel),
            'step 0: the replay\'s gradients against eager')
     in_graph = {k: [e for e in v if e[3]] for k, v in kept.items()}
-    held, err = hold_against_plain(in_graph, 'K1/K2/E1-E3 inside the graph')
-    print(f'K1/K2/E1-E3 as launched inside the graph, on its last replay\'s '
+    held, err = hold_against_plain(in_graph, 'K1/K2/E2/E3 inside the graph')
+    print(f'K1/K2/E2/E3 as launched inside the graph, on its last replay\'s '
           f'inputs, against plain: {held} held, max abs err {err}')
     fused = scene['backend'] == 'fused'
     _check(held['fwd'] == held['bwd'] == int(fused) and not held['trace']
-           and all(held[k] == 1 for k in EPILOGUE),
-           'the graph holds one K1 and one K2 launch (fused) and one of '
-           'each of E1-E3')
+           and not held['sample']
+           and all(held[k] == 1 for k in STEP_EPILOGUE),
+           'the graph holds one K1 and one K2 launch (fused), one of each '
+           'of E2 and E3 and none of E1')
     print(f'kernel launches during the {steps} replays: {launches}')
-    _check(launches == dict(fwd=steps * fused, bwd=steps * fused,
-                            **{k: steps for k in EPILOGUE}),
-           'one K1 and one K2 launch (fused) and one of each of E1-E3 '
-           'counted per replay')
+    _check(launches == dict(fwd=steps * fused, bwd=steps * fused, sample=0,
+                            **{k: steps for k in STEP_EPILOGUE + SHADE}),
+           'one K1 and one K2 launch (fused), one of each of E2, E3 and the '
+           'shading\'s two kernels counted per replay, none of E1')
     _check(all(np.isfinite(losses)), 'losses finite')
     _check(losses[-1] < losses[0], 'the loss falls')
     for n, p in params.named_parameters():
@@ -1108,16 +1269,22 @@ def times(scene, inputs, g_prod, card, call, peak):
     epi = dict(grid_sampler_ms=named('grid_sampler'),
                indexing_backward_ms=named('indexing_backward'),
                epilogue_kernels_ms=named('bilinear_', 'segment_'),
-               sort_ms=named('Radix', 'radix', 'Sort', 'sort'))
+               sort_ms=named('Radix', 'radix', 'Sort', 'sort'),
+               shade_kernels_ms=named('shade::'),
+               cat_ms=named('CatArrayBatchedCopy'))
     print(f'[{card}] compiled step, kernels by name (ms per step): '
           f'grid_sampler* {epi["grid_sampler_ms"]:.3f}, '
           f'indexing_backward* {epi["indexing_backward_ms"]:.3f} (what is '
-          f'left: index_vertices_by_faces\' backward), E1-E3 (bilinear_*, '
+          f'left: index_vertices_by_faces\' backward), E2/E3 (bilinear_*, '
           f'segment_*) {epi["epilogue_kernels_ms"]:.3f}, the stable sorts '
-          f'{epi["sort_ms"]:.3f}')
+          f'{epi["sort_ms"]:.3f}, the shading (shade::*) '
+          f'{epi["shade_kernels_ms"]:.3f}, CatArrayBatchedCopy '
+          f'{epi["cat_ms"]:.4f}')
     _check(epi['grid_sampler_ms'] == 0.,
            'grid_sample\'s kernels are gone from the compiled step')
-    _check(epi['epilogue_kernels_ms'] > 0., 'E1-E3 run in the compiled step')
+    _check(epi['epilogue_kernels_ms'] > 0., 'E2, E3 run in the compiled step')
+    _check(epi['shade_kernels_ms'] > 0., 'the shading runs in the compiled '
+           'step')
     print(f'[{card}] eager step: profile')
     idle_e = step_profile(eager, card)
     fwd = (vt, tr, cbb, H, H, MULT, EPS, SIGMAINV, True)
@@ -1908,7 +2075,7 @@ def config1(dev, card):
           f'{ksel_ms:.3f} ms; soft-mask epilogue: {split}')
     step_profile(lambda: _step(scene, scene['params']), card)
     return dict(step_ms=step_ms, cpu_s=cpu_s,
-                launches={k: launches[k] for k in EPILOGUE})
+                launches={k: launches[k] for k in EPILOGUE + SHADE})
 
 
 # ---------------------------------------------------------------------------
@@ -3499,21 +3666,23 @@ def path_f(dev, card):
         losses, logged, t_log, resume, first = result['fit']
         held, err = hold_against_plain(_epilogue_only(first),
                                        'path F step 0')
-        print(f'path F step 0\'s E1-E3 launches held against plain: '
+        print(f'path F step 0\'s E2, E3 launches held against plain: '
               f'{held}, max abs err {err}')
-        _check(all(held[k] == 1 for k in EPILOGUE),
-               'path F: step 0 launches E1-E3 once each')
+        _check(all(held[k] == 1 for k in STEP_EPILOGUE)
+               and not held['sample'],
+               'path F: step 0 launches E2 and E3 once each, E1 not')
         del first
         print(f'path F fit: {PF_STEPS} Adam steps (fused, {VIEWS} views, '
               f'{HEIGHT}^2, texture {TEXTURE_RES}^2) from the imported '
               f'sphere perturbed by 0.05 N(0, 1): loss {losses[0]:.6f} -> '
-              f'{losses[-1]:.6f}; K1/K2/E1-E3 launches {launches} (the loop '
-              f'and the resumed step); {fit_ms:.1f} ms for the whole fit with '
+              f'{losses[-1]:.6f}; K1/K2/E1-E3/shading launches {launches} '
+              f'(the loop and the resumed step); {fit_ms:.1f} ms for the '
+              f'whole fit with '
               f'logging and the checkpoint, under the profiler (host '
               f'clock), card idle share {idle:.3f}')
         _check(losses[-1] < losses[0], 'path F: the loss falls')
-        _check(all(launches[k] >= PF_STEPS + 1 for k in DIBR_KERNELS),
-               'path F: K1, K2 and E1-E3 on every step')
+        _check(all(launches[k] >= PF_STEPS + 1 for k in STEP_KERNELS),
+               'path F: K1, K2, E2, E3 and the shading on every step')
         print('path F Timelapse writes (ms, host clock: mesh, point cloud): '
               + ', '.join(f'iteration {k} {a:.1f} / {b:.1f}'
                           for k, (a, b) in t_log.items()))
@@ -3839,17 +4008,25 @@ HELD = {'fwd': (FU, '_fused_forward_cuda', FU._fused_forward_torch),
         'cull': (RS, '_cull_candidates_cuda', RS._cull_candidates_torch)}
 EPILOGUE = ('sample', 'sample_bwd', 'scatter')      # E1, E2, E3
 DIBR_KERNELS = ('fwd', 'bwd') + EPILOGUE
+# the shading's forward and backward (render/mesh/_shade.py): held against
+# their plain version by phase 3's check_shade, not by the recorder
+SHADE = ('shade', 'shade_bwd')
+# render_loss on the card: K1, K2, E2 and E3 (E1's taps are in the
+# shading's kernel), the shading
+STEP_EPILOGUE = ('sample_bwd', 'scatter')
+STEP_KERNELS = ('fwd', 'bwd') + STEP_EPILOGUE + SHADE
 # each LAUNCHES key's count dictionary
 COUNTS = {k: getattr(mod, 'LAUNCHES') for k, (mod, _, _) in HELD.items()}
+COUNTS.update({k: SH.LAUNCHES for k in SHADE})
 
 
-def zero_launches(keys=tuple(HELD)):
+def zero_launches(keys=tuple(COUNTS)):
     """Set the launch counts of ``keys`` to 0."""
     for k in keys:
         COUNTS[k][k] = 0
 
 
-def read_launches(keys=DIBR_KERNELS):
+def read_launches(keys=DIBR_KERNELS + SHADE):
     """The launch counts of ``keys``."""
     return {k: COUNTS[k][k] for k in keys}
 
@@ -4059,10 +4236,10 @@ def pg_examples(dev, tmp):
               f'{ {k: float(f"{v:.3e}") for k, v in e.items()} }; '
               f'{secs:.2f} s wall (host clock, test sizes: start-up and '
               f'first calls, with the recorder; not a rate)')
-    launches = read_launches(tuple(HELD))
+    launches = read_launches(tuple(COUNTS))
     # launches no recorder saw: the replays of captured launches
     replayed = {k: launches[k] - (n_held[k] - n_captured[k])
-                for k in launches}
+                for k in HELD}
     print(f'path G examples: kernel launches {launches}, of them replayed '
           f'from CUDA graphs {replayed}; every eager launch held against '
           f'plain, and each of the {n_captured} captured ones on its last '
@@ -4071,7 +4248,7 @@ def pg_examples(dev, tmp):
            'path G: the examples launch K1, K2, K3 and E1-E3')
     _check(all(replayed[k] >= n_captured[k]
                and (replayed[k] > 0) == (n_captured[k] > 0)
-               for k in launches),
+               for k in HELD),
            'path G: every example launch held, eagerly or on its graph')
     return launches, err
 
@@ -4219,8 +4396,8 @@ def ph_world1(dev, card, scene, ref):
         f'against the one-process step', loss.item(),
         [g.cpu().numpy() for g in grads], ref)
     held, err = hold_against_plain(kept, 'path H step 0')
-    _check(all(held[k] >= 1 for k in DIBR_KERNELS),
-           'path H: K1, K2 and E1-E3 launched in the step')
+    _check(all(held[k] >= 1 for k in ('fwd', 'bwd') + STEP_EPILOGUE),
+           'path H: K1, K2, E2 and E3 launched in the step')
     opt = torch.optim.Adam(model.parameters(), lr=LR)
     losses = []
     for _ in range(STEPS):
@@ -4232,14 +4409,14 @@ def ph_world1(dev, card, scene, ref):
     torch.cuda.synchronize()
     launches = read_launches()
     print(f'path H: {STEPS} Adam steps through multi_view_grad: loss '
-          f'{" -> ".join(f"{x:.6f}" for x in losses)}; K1/K2/E1-E3 launches '
-          f'{launches} (step 0 and the {STEPS} steps); step 0\'s launches '
-          f'held against plain {held}, max abs err K1 prod '
-          f'{err["fwd"]:.3e}, K2 {err["bwd"]:.3e}, E1-E3 '
-          f'{ {k: float(f"{err[k]:.3e}") for k in EPILOGUE} }')
+          f'{" -> ".join(f"{x:.6f}" for x in losses)}; K1/K2/E1-E3/shading '
+          f'launches {launches} (step 0 and the {STEPS} steps); step 0\'s '
+          f'launches held against plain {held}, max abs err K1 prod '
+          f'{err["fwd"]:.3e}, K2 {err["bwd"]:.3e}, E2, E3 '
+          f'{ {k: float(f"{err[k]:.3e}") for k in STEP_EPILOGUE} }')
     _check(losses[-1] < losses[0], 'path H: the loss falls')
-    _check(all(launches[k] >= STEPS + 1 for k in DIBR_KERNELS),
-           'path H: K1, K2 and E1-E3 on every step')
+    _check(all(launches[k] >= STEPS + 1 for k in STEP_KERNELS),
+           'path H: K1, K2, E2, E3 and the shading on every step')
 
     params = model.as_params()
     everything = tuple(torch.as_tensor(scene[k], device=dev)
@@ -4454,7 +4631,9 @@ def main():
     g_prod, k2_err = check_backward(scene, inputs, fid, prod)
     culling(scene, inputs, g_prod)
     epi, step_bits = check_epilogue(scene, card)
-    phase('3: K2 against plain, culling; E1-E3 against plain, their times')
+    shade_rows = check_shade(scene, card)
+    phase('3: K2 against plain, culling; E1-E3 and the shading against '
+          'plain, their times')
     launches, _, call, peak, epi_err = train(scene)
     check_step_against_plain(make_scene(dev, **STEP0_SIZE))
     phase('4: 5 Adam steps of the compiled step against eager, step 0 '
@@ -4616,6 +4795,22 @@ def main():
             name=epi_names[k], route='cuda', source=epi_src,
             replaces=epi_replaces[k], launches=sum(per_path.values()),
             path_launches=per_path, **row))
+    # the shading: render_loss on the card (the DIB-R step, config #1, paths
+    # F and H, the DIB-R example)
+    for k, name in (('shade', 'shade_forward_kernel+shade_loss_kernel'),
+                    ('shade_bwd', 'shade_backward_kernel+shade_sh_kernel')):
+        per_path = {'dibr': launches[k], 'config1': cfg1['launches'][k],
+                    'path_f': path_f_out['launches'][k],
+                    'path_g': path_g_out['launches'][k],
+                    'examples': path_g_out['examples'][k],
+                    'path_h': path_h_out['launches'][k]}
+        kernels.append(dict(
+            name=name, route='cuda',
+            source='kaolin_tpu_torch/csrc/shade.cuh',
+            replaces='kaolin_tpu/models/inverse_render.py:112-170 (XLA\'s '
+                     'fusion, no Pallas kernel)',
+            launches=sum(per_path.values()), path_launches=per_path,
+            library_ms=None, **shade_rows[k]))
     # the probes: `launches` counts their own entry point's run; none ran
     # on the DIB-R or SPC main paths (main_path_launches)
     for name in mosaic3.KERNELS:

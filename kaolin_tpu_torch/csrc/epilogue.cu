@@ -26,6 +26,11 @@
 //   kaolin_tpu/ops/gather.py::_gather_rows_bwd (:63-66): the module sorts
 //   the ids stably; the segment sums add each row's gradient rows.  Bound
 //   by bytes: g read once.
+// The DIB-R shading (shade.cuh, included below): the per-pixel chain from
+//   the face rows to the L1 + IoU loss terms and its backward, which hands
+//   d albedo to E2 and the face rows' gradients to E3; launched from
+//   kaolin_tpu_torch/render/mesh/_shade.py.  E1's taps are bilinear.cuh's,
+//   so the shading's albedo is E1's bit for bit.
 //
 // The segment sums have no atomics and give the same bits every run: each
 // sum is taken in an order fixed by the inputs alone.  The sorted entries
@@ -45,6 +50,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bilinear.cuh"
+#include "shade.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -55,30 +63,6 @@ constexpr int TILE = 32 * CHUNKS;       // sorted entries per warp
 constexpr int COMBINE_CTAS = 132 * 8;   // grid-stride over the tiles
 constexpr int SLOTS = 3;                // per tile: two pieces, one carry
 
-struct Corners {
-  int i00, i01, i10, i11;
-  float wx, wy;
-};
-
-// _flat_corner_idx for one pixel: the flat rows of the four taps in the
-// (B * H * W, C) table, each corner clipped on its own, and the lerp
-// weights.  boff is the pixel's view's first row.
-__device__ __forceinline__ Corners corners(float x, float y, int H, int W,
-                                           int boff) {
-  const float x0 = floorf(x), y0 = floorf(y);
-  const int xi = (int)x0, yi = (int)y0;
-  const int x0i = min(max(xi, 0), W - 1), x1i = min(max(xi + 1, 0), W - 1);
-  const int y0i = min(max(yi, 0), H - 1), y1i = min(max(yi + 1, 0), H - 1);
-  Corners k;
-  k.i00 = boff + y0i * W + x0i;
-  k.i01 = boff + y0i * W + x1i;
-  k.i10 = boff + y1i * W + x0i;
-  k.i11 = boff + y1i * W + x1i;
-  k.wx = x - x0;
-  k.wy = y - y0;
-  return k;
-}
-
 // E1: one pixel per thread
 __global__ void __launch_bounds__(THREADS)
 bilinear_forward_kernel(const float* __restrict__ tex,
@@ -87,15 +71,13 @@ bilinear_forward_kernel(const float* __restrict__ tex,
                         int Q, int P, int H, int W, int C) {
   const int q = blockIdx.x * THREADS + threadIdx.x;
   if (q >= Q) return;
-  const Corners k = corners(x[q], y[q], H, W, q / P * (H * W));
+  const bilinear::Corners k =
+      bilinear::corners(x[q], y[q], H, W, q / P * (H * W));
   const float ax = 1.f - k.wx, ay = 1.f - k.wy;
   for (int c = 0; c < C; ++c) {
-    const float v00 = tex[(int64_t)k.i00 * C + c];
-    const float v01 = tex[(int64_t)k.i01 * C + c];
-    const float v10 = tex[(int64_t)k.i10 * C + c];
-    const float v11 = tex[(int64_t)k.i11 * C + c];
-    out[(int64_t)q * C + c] = v00 * ax * ay + v01 * k.wx * ay
-                              + v10 * ax * k.wy + v11 * k.wx * k.wy;
+    float v[4];
+    bilinear::taps(tex, k, C, c, v);
+    out[(int64_t)q * C + c] = bilinear::lerp(v, k, ax, ay);
   }
 }
 
@@ -110,7 +92,8 @@ bilinear_pixels_kernel(const float* __restrict__ tex,
                        int P, int H, int W, int C) {
   const int q = blockIdx.x * THREADS + threadIdx.x;
   if (q >= Q) return;
-  const Corners k = corners(x[q], y[q], H, W, q / P * (H * W));
+  const bilinear::Corners k =
+      bilinear::corners(x[q], y[q], H, W, q / P * (H * W));
   keys[q] = k.i00;
   keys[Q + q] = k.i01;
   keys[2 * Q + q] = k.i10;
@@ -118,13 +101,9 @@ bilinear_pixels_kernel(const float* __restrict__ tex,
   const float ax = 1.f - k.wx, ay = 1.f - k.wy;
   float sx = 0.f, sy = 0.f;
   for (int c = 0; c < C; ++c) {
-    const float gv = g[(int64_t)q * C + c];
-    const float v00 = tex[(int64_t)k.i00 * C + c];
-    const float v01 = tex[(int64_t)k.i01 * C + c];
-    const float v10 = tex[(int64_t)k.i10 * C + c];
-    const float v11 = tex[(int64_t)k.i11 * C + c];
-    sx += gv * ((v01 - v00) * ay + (v11 - v10) * k.wy);
-    sy += gv * ((v10 - v00) * ax + (v11 - v01) * k.wx);
+    float v[4];
+    bilinear::taps(tex, k, C, c, v);
+    bilinear::grad_xy(v, k, ax, ay, g[(int64_t)q * C + c], &sx, &sy);
   }
   dx[q] = sx;
   dy[q] = sy;

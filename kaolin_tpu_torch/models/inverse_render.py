@@ -5,9 +5,11 @@ Port of ``kaolin_tpu/models/inverse_render.py``: optimizable parameters
 render step.  A training step is :func:`compute_selection` (the
 non-differentiable selection, under ``no_grad``: the fused engine's, or
 with ``backend='jnp'`` the brute-force z-buffer and the soft mask's
-k-buffer) followed by :func:`render_loss`, ``backward()`` and the
-optimizer's step.  :func:`compiled_step` makes that step one CUDA graph on
-the card, as the JAX package's callers jit theirs.
+k-buffer) followed by :func:`render_loss` (on the card the per-pixel chain
+from the face rows to the loss terms is one autograd Function of
+hand-written kernels, :mod:`~kaolin_tpu_torch.render.mesh._shade`),
+``backward()`` and the optimizer's step.  :func:`compiled_step` makes that
+step one CUDA graph on the card, as the JAX package's callers jit theirs.
 """
 
 import contextlib
@@ -18,13 +20,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from kaolin_tpu_torch._clip import clip
 from kaolin_tpu_torch._device import entry_device
-from kaolin_tpu_torch.metrics.render import mask_iou
 from kaolin_tpu_torch.render import camera as camera_fns
 from kaolin_tpu_torch.render import mesh as mesh_render
 from kaolin_tpu_torch.ops import _scatter
-from kaolin_tpu_torch.render.mesh import _fused, _sample
+from kaolin_tpu_torch.render.mesh import _fused, _sample, _shade
 from kaolin_tpu_torch.render.mesh.rasterization import _resolve_backend
 from kaolin_tpu_torch.utils.profiler import span
 
@@ -32,10 +32,14 @@ __all__ = ['InverseRender', 'InverseRenderParams', 'CameraViews',
            'make_views', 'render_views', 'render_loss', 'init_params',
            'compute_selection', 'from_jax_params', 'compiled_step']
 
+# the soft mask's sharpness where the caller gives none
+_SIGMAINV = 7000.
 # eager steps before a capture: PyTorch's whole-network capture recipe
 _WARMUP = 3
-# the launch counts of the kernels a step runs: K1 and K2, E1 and E2, E3
-_COUNTS = (_fused.LAUNCHES, _sample.LAUNCHES, _scatter.LAUNCHES)
+# the launch counts of the kernels a step runs: K1 and K2, E1 and E2, E3,
+# the shading's forward and backward
+_COUNTS = (_fused.LAUNCHES, _sample.LAUNCHES, _scatter.LAUNCHES,
+           _shade.LAUNCHES)
 
 
 class InverseRenderParams(NamedTuple):
@@ -133,7 +137,7 @@ def _prepare(params, views, faces):
 
 
 def compute_selection(params, views, faces, height, width, backend='auto',
-                      boxlen=0.02, knum=30, sigmainv=7000.):
+                      boxlen=0.02, knum=30, sigmainv=_SIGMAINV):
     """Run the non-differentiable selection passes (z-buffer + soft mask)
     on detached geometry.
 
@@ -162,13 +166,25 @@ def compute_selection(params, views, faces, height, width, backend='auto',
     return face_idx, kbuf
 
 
+def _soft_mask(face_vertices_image, selection, with_soft_mask, sigmainv,
+               knum):
+    """The soft silhouette mask of the selection (the hard one without
+    ``with_soft_mask``)."""
+    if with_soft_mask:
+        return mesh_render.dibr_soft_mask(
+            face_vertices_image, selection[0], sigmainv=sigmainv, knum=knum,
+            kbuf=selection[1])
+    return (selection[0] >= 0).to(face_vertices_image.dtype)
+
+
 def render_views(params, views, faces, face_uvs, height, width,
-                 backend='auto', sigmainv=7000., with_soft_mask=True,
+                 backend='auto', sigmainv=_SIGMAINV, with_soft_mask=True,
                  selection=None, knum=30):
     """Render all views: textured DIB-R + SH lighting.
 
     prepare_vertices -> rasterize(uvs, normals) -> texture_mapping +
-    spherical_harmonic_lighting -> soft mask.
+    spherical_harmonic_lighting (:func:`~kaolin_tpu_torch.render.mesh.
+    _shade.shade_images`, plain PyTorch) -> soft mask.
 
     Args:
         params: model parameters (``.vertices``, ``.texture_map``,
@@ -186,44 +202,34 @@ def render_views(params, views, faces, face_uvs, height, width,
     if selection is None:
         selection = compute_selection(params, views, faces, height, width,
                                       backend, sigmainv=sigmainv, knum=knum)
-    B = views.camera_rot.shape[0]
-    face_vertices_camera, face_vertices_image, face_normals = \
-        _prepare(params, views, faces)
-    face_uvs_b = face_uvs[None].expand((B,) + tuple(face_uvs.shape))
-    face_normals_corner = face_normals[:, :, None, :].expand(
-        tuple(face_normals.shape[:2]) + (3, 3))
-    (uv_map, normal_map), face_idx = mesh_render.rasterize(
-        height, width, face_vertices_camera[..., 2],
-        face_vertices_image, [face_uvs_b, face_normals_corner],
-        valid_faces=face_normals[..., 2] >= 0., backend=backend,
-        precomputed_face_idx=selection[0])
-    texture = params.texture_map[None].expand(
-        (B,) + tuple(params.texture_map.shape))
-    albedo = mesh_render.texture_mapping(uv_map, texture, mode='bilinear')
-    lighting = mesh_render.spherical_harmonic_lighting(
-        normal_map, params.sh_coeffs[None].expand(B, 9))
-    images = albedo * clip(lighting, 0.)[..., None]
-    images = clip(images, 0., 1.)
-    images = torch.where((face_idx >= 0)[..., None], images, 0.)
-    if with_soft_mask:
-        soft_mask = mesh_render.dibr_soft_mask(
-            face_vertices_image, face_idx, sigmainv=sigmainv, knum=knum,
-            kbuf=selection[1])
-    else:
-        soft_mask = (face_idx >= 0).to(images.dtype)
-    return images, soft_mask, face_idx
+    _, face_vertices_image, face_normals = _prepare(params, views, faces)
+    images = _shade.shade_images(selection[0], face_vertices_image,
+                                 face_normals, face_uvs, params.texture_map,
+                                 params.sh_coeffs)
+    soft_mask = _soft_mask(face_vertices_image, selection, with_soft_mask,
+                           sigmainv, knum)
+    return images, soft_mask, selection[0]
 
 
 def render_loss(params, views, faces, face_uvs, target_images, target_masks,
                 height, width, backend='auto', with_soft_mask=True,
                 selection=None, knum=30):
-    """Image L1 + silhouette IoU loss."""
+    """Image L1 + silhouette IoU loss of :func:`render_views`' images and
+    soft mask, which are not materialised on the card: there the chain
+    from the face rows to the two terms is
+    :func:`~kaolin_tpu_torch.render.mesh._shade.shade_loss`'s kernels, on
+    the CPU its plain composition."""
     with span('dibr.render', params.vertices.device):
-        images, soft_mask, _ = render_views(
-            params, views, faces, face_uvs, height, width, backend=backend,
-            with_soft_mask=with_soft_mask, selection=selection, knum=knum)
-        image_loss = torch.mean(torch.abs(images - target_images))
-        mask_loss = mask_iou(soft_mask, target_masks)
+        if selection is None:
+            selection = compute_selection(params, views, faces, height,
+                                          width, backend, knum=knum)
+        _, face_vertices_image, face_normals = _prepare(params, views, faces)
+        soft_mask = _soft_mask(face_vertices_image, selection,
+                               with_soft_mask, _SIGMAINV, knum)
+        image_loss, mask_loss = _shade.shade_loss(
+            selection[0], face_vertices_image, face_normals, face_uvs,
+            params.texture_map, params.sh_coeffs, soft_mask, target_images,
+            target_masks)
         return image_loss + mask_loss
 
 
@@ -253,7 +259,8 @@ def compiled_step(model, views, faces, face_uvs, target_images, target_masks,
     place, so a call raises once either was replaced (for example by
     ``load_state_dict``: load before building, or copy into the state).
     Each replay adds the graph's kernel launches to the kernels' counts
-    (``LAUNCHES`` of ``_fused``, ``_sample`` and ``ops/_scatter``).  The
+    (``LAUNCHES`` of ``_fused``, ``_sample``, ``ops/_scatter`` and
+    ``_shade``).  The
     graph is captured through the step's spans (``dibr.select``,
     ``dibr.render``, ``autograd.backward``, ``optim.step``; see
     :func:`~kaolin_tpu_torch.utils.profiler.span`), so every replay runs

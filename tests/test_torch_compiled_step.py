@@ -29,15 +29,16 @@ steps that building it takes and whose changes it puts back:
   ``numpy``, ``nonzero``, ``argwhere``, ``masked_select``, ``unique``,
   single-argument ``where`` and boolean-mask indexing), except inside the
   kernels' plain versions and the optimizer's step, which the card does
-  not run: it runs K1, K2, E1-E3 and Adam's capturable form, which read
-  nothing;
+  not run: it runs K1, K2, E2, E3, the shading's kernels and Adam's
+  capturable form, which read nothing;
 * a call with other shapes, types or devices raises.
 
 Card-only cases (skipped without one): a replay against the eager step
 from the same parameters at ``chip_smoke.py`` phase 4's limits (face ids,
 soft-mask product, loss and gradients bit for bit,
 three steps' losses within rtol 1e-4), two replays counting two launches
-of each of K1, K2 and E1-E3, a state loaded after the capture refused, an
+of each of K1, K2, E2, E3 and the shading's two kernels (and none of E1,
+whose taps the shading takes in its own kernel), a state loaded after the capture refused, an
 optimizer that is not capturable refused, and the module-route wrappers'
 messages on a wrong type or device.
 """
@@ -54,6 +55,7 @@ from kaolin_tpu_torch.models import inverse_render as MT
 from kaolin_tpu_torch.ops import _scatter as SCT
 from kaolin_tpu_torch.render.mesh import _fused as FT
 from kaolin_tpu_torch.render.mesh import _sample as SAT
+from kaolin_tpu_torch.render.mesh import _shade as SHT
 
 H = W = 64
 VIEWS = 2
@@ -367,14 +369,15 @@ def test_cuda_replays_count_launches(scene):
     model, views, faces, face_uvs, images, masks = _inputs(scene, 'cuda')
     step = MT.compiled_step(model, views, faces, face_uvs, images, masks, H,
                             W, _adam(model, 'cuda'), backend='fused')
-    counts = (FT.LAUNCHES, SAT.LAUNCHES, SCT.LAUNCHES)
+    counts = (FT.LAUNCHES, SAT.LAUNCHES, SCT.LAUNCHES, SHT.LAUNCHES)
     before = [dict(c) for c in counts]
     step(views, images, masks)
     step(views, images, masks)
     torch.cuda.synchronize()
+    # the shading's albedo takes E1's taps inside its own kernel
     assert [{k: c[k] - b[k] for k in b} for c, b in zip(counts, before)] == \
-        [{'fwd': 2, 'bwd': 2}, {'sample': 2, 'sample_bwd': 2},
-         {'scatter': 2}]
+        [{'fwd': 2, 'bwd': 2}, {'sample': 0, 'sample_bwd': 2},
+         {'scatter': 2}, {'shade': 2, 'shade_bwd': 2}]
 
 
 @cuda

@@ -10,7 +10,9 @@ term is an integer or a half (the gather tests) the sums are exact in any
 order and compared bit for bit.  The epilogue as a whole
 (``_interpolate_selected_batched``, one combined gather of the
 ``(B*F, 6 + 3C)`` face table) and the whole ``render_loss`` gradients are
-held to the JAX package for both backends.
+held to the JAX package for both backends, and for the loss terms of
+``_shade.shade_loss`` (the DIB-R shading's plain version) on the fused
+selection.
 
 Card-only cases (skipped without one): E1-E3 against their plain versions
 on the card (E1 equal, E2 and E3 within 1e-5 * max|out| of the plain
@@ -29,7 +31,7 @@ import torch
 from kaolin_tpu_torch.models import inverse_render as MT
 from kaolin_tpu_torch.ops import _scatter
 from kaolin_tpu_torch.ops import gather as GT
-from kaolin_tpu_torch.render.mesh import _sample
+from kaolin_tpu_torch.render.mesh import _sample, _shade
 from kaolin_tpu_torch.render.mesh import rasterization as RT
 from kaolin_tpu_torch.render.mesh import utils as UT
 from kaolin_tpu_torch.utils.testing import uv_sphere
@@ -280,32 +282,59 @@ def dibr_scene():
                 masks=(rng.random((2, 64, 64)) > 0.5).astype(np.float32))
 
 
-@pytest.mark.parametrize('backend', ['fused', 'jnp'])
-def test_render_loss_grads(J, dibr_scene, backend):
+@pytest.fixture(scope='module')
+def jax_losses(J, dibr_scene):
+    """The JAX package's selection, loss and gradients by backend, each
+    computed once."""
+    s, H, done = dibr_scene, 64, {}
+
+    def of(backend):
+        if backend not in done:
+            params = J.MJ.InverseRenderParams(*(J.jnp.asarray(s[k]) for k in (
+                'verts', 'tex', 'sh')))
+            views = J.MJ.CameraViews(*(J.jnp.asarray(v.numpy()) for v in
+                                       MT.make_views(2, device='cpu')))
+            faces = J.jnp.asarray(s['faces'])
+            uvs = J.jnp.asarray(s['face_uvs'])
+            sel = J.MJ.compute_selection(params, views, faces, H, H,
+                                         backend=backend)
+            done[backend] = (sel, *J.jax.value_and_grad(
+                lambda p: J.MJ.render_loss(
+                    p, views, faces, uvs, J.jnp.asarray(s['images']),
+                    J.jnp.asarray(s['masks']), H, H, backend=backend,
+                    selection=sel))(params))
+        return done[backend]
+    return of
+
+
+@pytest.mark.parametrize('backend', ['fused', 'jnp', 'shade'])
+def test_render_loss_grads(jax_losses, dibr_scene, backend):
     """The whole DIB-R loss at 64^2, 2 views, a 16 x 8 texture: the loss
     within rtol 1e-5 and the vertex, texture and SH gradients within
     1e-4 * max|g_jax| of the JAX package's (its selection in interpret
-    mode for 'fused')."""
+    mode for 'fused').  'shade' is the fused selection with the loss terms
+    taken from ``_shade.shade_loss`` itself (the autograd Function's plain
+    version on the CPU), on the pieces ``render_loss`` hands it."""
     s, H = dibr_scene, 64
-    params = J.MJ.InverseRenderParams(*(J.jnp.asarray(s[k])
-                                        for k in ('verts', 'tex', 'sh')))
+    selection = 'fused' if backend == 'shade' else backend
+    sel, loss_j, g_j = jax_losses(selection)
     views_t = MT.make_views(2, device='cpu')
-    views_j = J.MJ.CameraViews(*(J.jnp.asarray(v.numpy()) for v in views_t))
-    faces, uvs = J.jnp.asarray(s['faces']), J.jnp.asarray(s['face_uvs'])
-    sel = J.MJ.compute_selection(params, views_j, faces, H, H, backend=backend)
-    loss_j, g_j = J.jax.value_and_grad(lambda p: J.MJ.render_loss(
-        p, views_j, faces, uvs, J.jnp.asarray(s['images']),
-        J.jnp.asarray(s['masks']), H, H, backend=backend,
-        selection=sel))(params)
     model = MT.from_jax_params(s['verts'], s['tex'], s['sh'], device='cpu')
     faces_t, uvs_t = (torch.as_tensor(s[k]) for k in ('faces', 'face_uvs'))
+    images, masks = (torch.as_tensor(s[k]) for k in ('images', 'masks'))
     sel_t = MT.compute_selection(model, views_t, faces_t, H, H,
-                                 backend=backend)
+                                 backend=selection)
     np.testing.assert_array_equal(sel_t[0].numpy(), np.asarray(sel[0]))
-    loss = MT.render_loss(model, views_t, faces_t, uvs_t,
-                          torch.as_tensor(s['images']),
-                          torch.as_tensor(s['masks']), H, H,
-                          backend=backend, selection=sel_t)
+    if backend == 'shade':
+        _, fvi, fn = MT._prepare(model, views_t, faces_t)
+        soft = MT._soft_mask(fvi, sel_t, True, MT._SIGMAINV, 30)
+        image_loss, mask_loss = _shade.shade_loss(
+            sel_t[0], fvi, fn, uvs_t, model.texture_map, model.sh_coeffs,
+            soft, images, masks)
+        loss = image_loss + mask_loss
+    else:
+        loss = MT.render_loss(model, views_t, faces_t, uvs_t, images, masks,
+                              H, H, backend=backend, selection=sel_t)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
     for name in ('vertices', 'texture_map', 'sh_coeffs'):

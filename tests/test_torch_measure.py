@@ -130,11 +130,15 @@ def _package_keys(csrc):
     ('tma.cuh', {'probes', 'probes_module'}),
     ('spc_trace_entry.h', {'spc_trace_module', 'probes_module'}),
     ('ext.h', {'dibr_fused_module', 'epilogue_module', 'probes_module',
-               'spans_module', 'spc_cull_module', 'spc_trace_module'})])
+               'spans_module', 'spc_cull_module', 'spc_trace_module'}),
+    ('bilinear.cuh', {'epilogue', 'epilogue_module'}),
+    ('shade.cuh', {'epilogue', 'epilogue_module'}),
+    ('shade.h', {'epilogue', 'epilogue_module'})])
 def test_package_header_keys_only_its_includers(tmp_path, header, rebuilt):
     """An edit to one of the package's headers changes the keys of exactly
     the builds that include it: K3's template those of K3 and the probes
-    (P3), the copy engine's helpers the probes' only."""
+    (P3), the copy engine's helpers the probes' only, E1's taps and the
+    DIB-R shading the epilogue's."""
     csrc = tmp_path / 'csrc'
     shutil.copytree(_cuda.CSRC, csrc)
     before = _package_keys(csrc)
