@@ -261,6 +261,20 @@ on ``torch.distributed``; K1/K2 on every rank):
     one-process ``'jnp'`` loss and selection.  Prints the ``parallel``
     line (each world size with its backend, the card).
 
+DIB-R++ (``models/dibrpp.py``: shape, a 4-channel albedo and roughness map
+and 32 SG lights; K1, K2 and E1-E3 under PyTorch's SG shading), as the
+benchmark's cell ``sg.lights.512x4`` runs it:
+
+25. the DIB-R cell's sphere, views and vertex noise at 512^2, 4 views, a
+    256^2 material map and path C's lights (targets from the ground truth,
+    the start's lights perturbed); 5 Adam steps of ``compiled_step(...,
+    loss_fn=dibrpp.render_loss)`` against 5 eager steps from the same
+    start (step 0's loss and gradients bit for bit, every loss within step
+    0's limit); K1, K2 and E1-E3 as launched inside the graph (E1 / E2 over
+    the material's 4 channels, E3 over the face rows' 30 columns) against
+    their plain versions, one launch of each counted per replay and none of
+    the SH shading's; the step's time and peak memory.
+
 Each phase prints its seconds, and the script its total.
 
 Every kernel of the ``kernels`` line carries its time, its plain
@@ -269,7 +283,8 @@ operations over 67 TFLOP/s, counted on this run's inputs) and, where one
 PyTorch call computes the same function, that call's time.  E1-E3's and
 the shading's launches are counted on every path that renders through
 ``rasterize``'s epilogue and ``texture_mapping`` or ``render_loss``: the
-DIB-R step, config #1 and paths F, G (the fit and the examples) and H.
+DIB-R step, config #1, paths F, G (the fit and the examples) and H, and
+the DIB-R++ step.
 
 Every phase synchronises and raises on failure; there is no CPU path.
 Usage: ``python3 chip_smoke.py`` from the root of the repository.  The last
@@ -296,6 +311,7 @@ from kaolin_tpu_torch import _cuda, _native
 from kaolin_tpu_torch.io import usd
 from kaolin_tpu_torch.io.obj import import_mesh
 from kaolin_tpu_torch.metrics import tetmesh as met_tet
+from kaolin_tpu_torch.models import dibrpp as DP
 from kaolin_tpu_torch.models import inverse_render as M
 from kaolin_tpu_torch.ops.conversions.tetmesh import marching_tetrahedra
 from kaolin_tpu_torch.ops.mesh.tetmesh import (inverse_vertices_offset,
@@ -4604,6 +4620,162 @@ def path_h(dev, card):
                 k2_err=max(one['k2_err'], cfg5['k2_err']))
 
 
+# ---------------------------------------------------------------------------
+# DIB-R++ (phase 25): the model of models/dibrpp.py through the compiled step
+# at the sg.lights.512x4 cell's size: the DIB-R cell's sphere, views and
+# vertex noise, a 4-channel 256^2 material map and path C's 32 lights
+
+PP_ROUGHNESS_GT = (0.2, 0.6)    # the ground truth's roughness, uniform
+PP_ROUGHNESS_START = 0.3
+PP_SEED = 26
+
+
+def dibrpp_scene(dev, height=HEIGHT, views=VIEWS, texture_res=TEXTURE_RES):
+    """The DIB-R++ fit's inputs at the cell's start point: targets rendered
+    by ``models/dibrpp.py::render_views`` from the unperturbed sphere, a
+    material map (albedo uniform, roughness uniform in PP_ROUGHNESS_GT)
+    and path C's ground-truth lights; the start the vertices perturbed as
+    :func:`make_scene` perturbs them, a material map drawn anew with
+    roughness PP_ROUGHNESS_START and path C's start lights."""
+    s = uv_sphere(*SPHERE)
+    faces = torch.as_tensor(s.faces, device=dev)
+    face_uvs = torch.as_tensor(s.uvs[s.face_uvs_idx], device=dev)
+    cams = M.make_views(views, device=dev)
+    v = M.init_params(s, texture_res, device=dev).vertices.detach()
+    rng = np.random.default_rng(PP_SEED)
+    mat_gt = rng.random((4, texture_res, texture_res), dtype=np.float32)
+    lo, hi = PP_ROUGHNESS_GT
+    mat_gt[3] = lo + (hi - lo) * mat_gt[3]
+    mat0 = rng.random((4, texture_res, texture_res), dtype=np.float32)
+    mat0[3] = PP_ROUGHNESS_START
+    lights_gt, lights0 = sg_start(dev)
+    gt = DP.DIBRPP(v.clone(), torch.as_tensor(mat_gt, device=dev),
+                   *(torch.as_tensor(x, device=dev) for x in lights_gt))
+    with torch.no_grad():
+        sel = M.compute_selection(gt, cams, faces, height, height,
+                                  backend='fused')
+        target_images, target_masks, _ = DP.render_views(
+            gt, cams, faces, face_uvs, height, height, backend='fused',
+            selection=sel)
+    noise = np.random.default_rng(0).standard_normal(
+        tuple(v.shape)).astype(np.float32)
+    start = (v + 0.05 * torch.as_tensor(noise, device=dev),
+             torch.as_tensor(mat0, device=dev),
+             *(x.detach() for x in lights0))
+    return dict(faces=faces, face_uvs=face_uvs, views=cams, start=start,
+                target_images=target_images, target_masks=target_masks,
+                height=height)
+
+
+def dibrpp(dev, card, steps=STEPS):
+    """Phase 25: ``steps`` Adam steps of ``M.compiled_step(...,
+    loss_fn=DP.render_loss)`` (one CUDA graph a step, capturable Adam over
+    the six leaves) at the cell's size, held against as many eager steps
+    from the same start: step 0's loss bit for bit and its gradients within
+    REPLAY_GRAD_REL, every loss within step 0's card-vs-CPU limit; K1, K2
+    and E1-E3 as launched inside the graph (E1 and E2 over the 4-channel
+    material map, E3 over the 30-column face rows of uv, normal and world
+    corners) against their plain versions on its last replay's inputs,
+    with :func:`hold_against_plain`'s limits; the launches counted per
+    replay (one of each of K1, K2, E1-E3, none of the SH shading's
+    kernels); the loss falls, every leaf moves; the replay's time and the
+    peak memory of the build and the replays.  Returns (the launches over
+    the replays, K1, K2 and E1-E3's max abs errors inside the graph)."""
+    sc = dibrpp_scene(dev)
+    H = sc['height']
+    fixed = (sc['views'], sc['faces'], sc['face_uvs'], sc['target_images'],
+             sc['target_masks'], H, H)
+
+    def model():
+        m = DP.DIBRPP(*(t.clone() for t in sc['start']))
+        return m, torch.optim.Adam(m.parameters(), lr=LR, capturable=True)
+
+    twin, opt_e = model()
+    eager = []
+    for _ in range(steps):
+        for p in twin.parameters():
+            p.grad = None
+        sel = M.compute_selection(twin, sc['views'], sc['faces'], H, H,
+                                  backend='fused')
+        loss = DP.render_loss(twin, *fixed, backend='fused', selection=sel)
+        loss.backward()
+        eager.append(dict(loss=loss.detach(), grads=[
+            p.grad.clone() for p in twin.parameters()]))
+        opt_e.step()
+    del twin, opt_e
+    params, opt = model()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with kept_launches() as kept:
+        step = M.compiled_step(params, *fixed, opt, backend='fused',
+                               loss_fn=DP.render_loss)
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    zero_launches()
+    out = []
+    for _ in range(steps):
+        loss = step(sc['views'], sc['target_images'], sc['target_masks'])
+        out.append(dict(loss=loss, grads=[p.grad.clone()
+                                          for p in params.parameters()]))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [o['loss'].item() for o in out]
+    for k, (o, e) in enumerate(zip(out, eager)):
+        rel = abs(losses[k] - e['loss'].item()) / abs(e['loss'].item())
+        print(f'DIB-R++ step {k}: loss {losses[k]:.7f}, eager '
+              f'{e["loss"].item():.7f} (rel {rel:.2e}, limit '
+              f'{STEP0_LOSS_RTOL:g})')
+        _check(rel <= STEP0_LOSS_RTOL, f'DIB-R++ step {k} loss against '
+               'eager')
+    o, e = out[0], eager[0]
+    g_rel = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+             for a, b in zip(o['grads'], e['grads'])]
+    same = torch.equal(_bits(o['loss']), _bits(e['loss']))
+    print(f'DIB-R++ step 0, replay against eager from the same parameters: '
+          f'loss bit-equal {same}; gradients max|d| / max|g| (vertices, '
+          f'material, amplitude, azimuth, elevation, sharpness) '
+          + ', '.join(f'{x:.2e}' for x in g_rel)
+          + f' (limit {REPLAY_GRAD_REL["fused"]:g})')
+    _check(same, 'DIB-R++ step 0: the replay\'s loss bit-equal to eager')
+    _check(all(x <= REPLAY_GRAD_REL['fused'] for x in g_rel),
+           'DIB-R++ step 0: the replay\'s gradients against eager')
+    in_graph = {k: [e for e in v if e[3]] for k, v in kept.items()}
+    held, err = hold_against_plain(in_graph, 'DIB-R++: K1/K2/E1-E3 inside '
+                                   'the graph')
+    print(f'DIB-R++: K1/K2/E1-E3 as launched inside the graph, on its last '
+          f'replay\'s inputs, against plain: {held} held, max abs err {err}')
+    _check(held['fwd'] == held['bwd'] == 1 and not held['trace']
+           and not held['cull'] and all(held[k] == 1 for k in EPILOGUE),
+           'DIB-R++: the graph holds one launch of each of K1, K2, E1-E3')
+    print('DIB-R++: E1-E3\'s tensor inputs in the graph ' + str(
+        {k: [tuple(a.shape) for a in in_graph[k][0][0] if torch.is_tensor(a)]
+         for k in EPILOGUE}))
+    print(f'DIB-R++ kernel launches during the {steps} replays: {launches}')
+    _check(launches == dict(fwd=steps, bwd=steps, sample=steps,
+                            sample_bwd=steps, scatter=steps, shade=0,
+                            shade_bwd=0),
+           'DIB-R++: one launch of each of K1, K2, E1-E3 counted per '
+           'replay, none of the SH shading\'s kernels')
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           'DIB-R++: the loss falls')
+    for (n, p), s0 in zip(params.named_parameters(), sc['start']):
+        _check(bool(torch.isfinite(p).all()) and not torch.equal(
+            p.detach(), s0), f'DIB-R++: {n} finite and moved')
+
+    def call():
+        return step(sc['views'], sc['target_images'], sc['target_masks'])
+    ms = time_ms(call, 5)
+    B = sc['views'].camera_rot.shape[0]
+    print(f'[{card}] DIB-R++ compiled step ({B} views, {H}x{H}, '
+          f'{sc["faces"].shape[0]} faces, {DP.LOBES} SG lights): built in '
+          f'{build_s:.2f} s, {ms:.3f} ms a step = '
+          f'{B * H * H / ms / 1e3:.3f} Mpix/s; peak allocated over build and '
+          f'replays {peak / 2 ** 30:.3f} GiB')
+    return launches, {k: err[k] for k in ('fwd', 'bwd') + EPILOGUE}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py: torch.cuda.is_available() is '
@@ -4706,6 +4878,10 @@ def main():
     path_h_out = path_h(dev, card)
     phase('24: path H (the DIB-R step sharded over ranks: world size 1 on '
           'nccl, config #5\'s width, world size 2 on gloo)')
+    torch.cuda.empty_cache()
+    pp_launches, pp_err = dibrpp(dev, card)
+    phase('25: DIB-R++ (the compiled step with models/dibrpp.py\'s loss at '
+          'the sg.lights.512x4 cell\'s size)')
 
     src = 'kaolin_tpu_torch/csrc/dibr_fused.cu'
     trace_src = 'kaolin_tpu_torch/csrc/spc_trace.cuh'
@@ -4716,16 +4892,17 @@ def main():
                        + path_f_out['launches']['fwd']
                        + path_g_out['launches']['fwd']
                        + path_g_out['examples']['fwd']
-                       + path_h_out['launches']['fwd']),
+                       + path_h_out['launches']['fwd'] + pp_launches['fwd']),
              path_launches={'dibr': launches['fwd'],
                             'path_c': path_c_out['launches'],
                             'path_f': path_f_out['launches']['fwd'],
                             'path_g': path_g_out['launches']['fwd'],
                             'examples': path_g_out['examples']['fwd'],
-                            'path_h': path_h_out['launches']['fwd']},
+                            'path_h': path_h_out['launches']['fwd'],
+                            'dibrpp': pp_launches['fwd']},
              max_abs_err=max(k1_err, path_c_out['k1_err'],
                              path_f_out['k1_err'], path_g_out['k1_err'],
-                             path_h_out['k1_err']),
+                             path_h_out['k1_err'], pp_err['fwd']),
              ms=t['k1_ms'], plain_ms=t['k1_plain_ms'],
              **_bound(k1_b, k1_f), library_ms=None,
              path_c_ms=path_c_out['k1_ms'],
@@ -4735,14 +4912,16 @@ def main():
              launches=(launches['bwd'] + path_f_out['launches']['bwd']
                        + path_g_out['launches']['bwd']
                        + path_g_out['examples']['bwd']
-                       + path_h_out['launches']['bwd']),
+                       + path_h_out['launches']['bwd'] + pp_launches['bwd']),
              path_launches={'dibr': launches['bwd'],
                             'path_f': path_f_out['launches']['bwd'],
                             'path_g': path_g_out['launches']['bwd'],
                             'examples': path_g_out['examples']['bwd'],
-                            'path_h': path_h_out['launches']['bwd']},
+                            'path_h': path_h_out['launches']['bwd'],
+                            'dibrpp': pp_launches['bwd']},
              max_abs_err=max(k2_err, path_f_out['k2_err'],
-                             path_g_out['k2_err'], path_h_out['k2_err']),
+                             path_g_out['k2_err'], path_h_out['k2_err'],
+                             pp_err['bwd']),
              ms=t['k2_ms'], plain_ms=t['k2_plain_ms'],
              **_bound(k2_b, k2_f), library_ms=None),
         dict(name='spc_trace_kernel', route='cuda', source=trace_src,
@@ -4786,9 +4965,10 @@ def main():
                     'path_f': path_f_out['launches'][k],
                     'path_g': path_g_out['launches'][k],
                     'examples': path_g_out['examples'][k],
-                    'path_h': path_h_out['launches'][k]}
+                    'path_h': path_h_out['launches'][k],
+                    'dibrpp': pp_launches[k]}
         row = dict(epi[k])
-        row['max_abs_err'] = max(row['max_abs_err'], epi_err[k],
+        row['max_abs_err'] = max(row['max_abs_err'], epi_err[k], pp_err[k],
                                  *(out['epi_err'][k] for out in (
                                      path_f_out, path_g_out, path_h_out)))
         kernels.append(dict(
@@ -4803,7 +4983,8 @@ def main():
                     'path_f': path_f_out['launches'][k],
                     'path_g': path_g_out['launches'][k],
                     'examples': path_g_out['examples'][k],
-                    'path_h': path_h_out['launches'][k]}
+                    'path_h': path_h_out['launches'][k],
+                    'dibrpp': pp_launches[k]}
         kernels.append(dict(
             name=name, route='cuda',
             source='kaolin_tpu_torch/csrc/shade.cuh',

@@ -21,7 +21,9 @@
   X(spc_cull)                                                               \
   X(spc_order)                                                              \
   X(spc_gather)                                                             \
-  X(spc_trace)
+  X(spc_trace)                                                              \
+  X(dibr_sg)                                                                \
+  X(dibr_sg_backward)
 
 #define KT_MARK_KERNELS(slug)                                               \
   extern "C" __global__ void kt_span_begin_##slug() {}                      \

@@ -234,11 +234,20 @@ def render_loss(params, views, faces, face_uvs, target_images, target_masks,
 
 
 def compiled_step(model, views, faces, face_uvs, target_images, target_masks,
-                  height, width, optimizer, backend='auto', knum=30):
+                  height, width, optimizer, backend='auto', knum=30,
+                  loss_fn=None):
     """One whole training step as one program: :func:`compute_selection`
     -> :func:`render_loss` -> ``backward()`` -> ``optimizer.step()``, the
     port's counterpart of the JAX callers'
     ``jax.jit(jax.value_and_grad(render_loss))`` and optax update.
+
+    ``loss_fn`` (default :func:`render_loss`, this module's when the step
+    is built) is the step's loss: a function with :func:`render_loss`'s
+    arguments that takes ``model`` as its parameters, such as another
+    model's (``models/dibrpp.py::render_loss``, whose model adds material
+    and light leaves).  Whatever it is, the selection is
+    :func:`compute_selection` of ``model.vertices``, and every parameter
+    of ``model`` is a leaf of the backward and the optimizer's update.
 
     Returns a callable ``step(views, target_images, target_masks)`` that
     takes one step of ``model`` toward the targets seen from ``views`` and
@@ -263,9 +272,10 @@ def compiled_step(model, views, faces, face_uvs, target_images, target_masks,
     ``_shade``).  The
     graph is captured through the step's spans (``dibr.select``,
     ``dibr.render``, ``autograd.backward``, ``optim.step``; see
-    :func:`~kaolin_tpu_torch.utils.profiler.span`), so every replay runs
-    their 8 empty mark kernels, and a profiler's trace of the replays
-    shows the phases on the card's timeline.
+    :func:`~kaolin_tpu_torch.utils.profiler.span`; a DIB-R++ loss adds
+    ``dibr.sg`` and ``dibr.sg_backward``), so every replay runs their 8
+    (12) empty mark kernels, and a profiler's trace of the replays shows
+    the phases on the card's timeline.
 
     On a CPU model each call runs the same step eagerly.  On either
     device, building takes ``_WARMUP`` eager steps and then puts the
@@ -273,7 +283,7 @@ def compiled_step(model, views, faces, face_uvs, target_images, target_masks,
     """
     return _CompiledStep(model, views, faces, face_uvs, target_images,
                          target_masks, height, width, optimizer,
-                         _resolve_backend(backend), knum)
+                         _resolve_backend(backend), knum, loss_fn)
 
 
 def _signature(tensors):
@@ -305,9 +315,11 @@ class _CompiledStep:
     """What :func:`compiled_step` returns."""
 
     def __init__(self, model, views, faces, face_uvs, target_images,
-                 target_masks, height, width, optimizer, backend, knum):
+                 target_masks, height, width, optimizer, backend, knum,
+                 loss_fn):
         self.model, self.optimizer = model, optimizer
         self._args = (faces, face_uvs, height, width, backend, knum)
+        self._loss_fn = loss_fn or render_loss
         self._params = list(model.parameters())
         inputs = (*views, target_images, target_masks)
         self._signature = _signature(inputs)
@@ -350,9 +362,9 @@ class _CompiledStep:
         views = CameraViews(*inputs[:3])
         sel = compute_selection(self.model, views, faces, height, width,
                                 backend, knum=knum)
-        loss = render_loss(self.model, views, faces, face_uvs, inputs[3],
-                           inputs[4], height, width, backend=backend,
-                           selection=sel, knum=knum)
+        loss = self._loss_fn(self.model, views, faces, face_uvs, inputs[3],
+                             inputs[4], height, width, backend=backend,
+                             selection=sel, knum=knum)
         device = self.model.vertices.device
         with span('autograd.backward', device):
             loss.backward()

@@ -14,7 +14,8 @@ its time wraps the loop in :func:`trace`::
 
 The trace then shows, on the host's timeline, a user annotation for each
 span of :data:`SPANS` the loop passed through (the DIB-R step's selection,
-render and loss, backward and optimizer step; the SPC frame's culling,
+render and loss, backward and optimizer step, and a DIB-R++ step's SG
+shading and its backward inside the last two; the SPC frame's culling,
 block order, gathers and trace), with the runtime's calls inside them
 (``cudaStreamSynchronize`` where the host waits for the card), and on the
 card's timeline a pair of empty kernels ``kt_span_begin_<slug>`` /
@@ -40,7 +41,7 @@ __all__ = ['Timer', 'benchmark', 'trace', 'span', 'SPANS']
 # its index here)
 SPANS = ('dibr.select', 'dibr.render', 'autograd.backward', 'optim.step',
          'parallel.all_reduce', 'spc.frame', 'spc.cull', 'spc.order',
-         'spc.gather', 'spc.trace')
+         'spc.gather', 'spc.trace', 'dibr.sg', 'dibr.sg_backward')
 _MARK_IDS = {name: k for k, name in enumerate(SPANS)}
 _OFF = contextlib.nullcontext()
 

@@ -219,6 +219,7 @@ def test_port_imports_no_jax():
             'from kaolin_tpu_torch.metrics import tetmesh; '
             'from kaolin_tpu_torch.ops.conversions import tetmesh; '
             'from kaolin_tpu_torch import _clip; '
+            'from kaolin_tpu_torch.models import dibrpp, dibrpp_reference; '
             'from kaolin_tpu_torch.render import lighting; '
             'from kaolin_tpu_torch.render.lighting import sg, sh; '
             'from kaolin_tpu_torch.ops import batch, coords, gcn, '
